@@ -3,10 +3,15 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA substep kernel from this checkout, holds it to its plain
-PyTorch version on the card, drives DDiffPG's antmaze-v1 collect path at
-4096 envs with a stock-width diffusion policy (random weights from a
-seed), and probes the goal. It prints one line per phase, then a JSON line
+Builds the CUDA substep kernel from this checkout for the ant and the four
+Panda scenes (one nvcc per model, all started together), holds every build
+to its plain PyTorch version on the card, drives DDiffPG's collect path at
+4096 envs with a stock-width diffusion policy (random weights from a seed)
+on antmaze-v1, PandaDrawerMultiJoints-v3 and PandaReachJoints-v3, and
+probes the goals. A collect step and its parts are timed on the host clock
+with a synchronize around each call, and, after every timed phase, read on
+the device from torch.profiler windows (busy time and idle share). It
+prints one line per phase, then a JSON line
 `{"kernels": [...]}`, the card's name and power limit as nvidia-smi gives
 them, and last `{"ok": true, "device": {...}}`. It exits non-zero, printing
 no result, when there is no CUDA card, when the port cannot be imported, or
@@ -17,24 +22,60 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.profiler
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from ddiffpg_tpu_torch.agents.ddiffpg import collect, explore_actions
+from ddiffpg_tpu_torch.config import Config
+from ddiffpg_tpu_torch.envs import make
+from ddiffpg_tpu_torch.envs.antmaze import AntMazeEnv
+from ddiffpg_tpu_torch.envs.base import VecEnv
+from ddiffpg_tpu_torch.envs.panda import PandaTaskEnv
+from ddiffpg_tpu_torch.models.diffusion import DiffusionPolicy
+from ddiffpg_tpu_torch.physics import engine
+from ddiffpg_tpu_torch.physics import quat as Q
+from ddiffpg_tpu_torch.physics.panda import (JOINT_LIMIT_HI, JOINT_LIMIT_LO,
+                                             build_panda_scene)
+from ddiffpg_tpu_torch.physics.substep import (SubstepConstants,
+                                               substep_reference)
+from ddiffpg_tpu_torch.physics.substep_cuda import (SubstepKernel, build,
+                                                    build_all)
 
 NUM_ENVS = 4096          # bench.py's headline cell
 EVAL_ENVS = 20           # the eval batch: checks the kernel's tail masking
 N_STEPS = 64             # control steps of the timed collect (bench.py:71)
-N_PLAIN_STEPS = 4        # control steps timed with the plain physics
+N_PLAIN_STEPS = 4        # ant control steps timed with the plain physics
+N_REACH_STEPS = 16       # PandaReachJoints-v3 control steps
+N_PANDA_PLAIN_STEPS = 2  # DrawerMulti control steps with the plain physics
 P_EXPLOIT = 0.5
 NUM_MODES = 2            # live behaviour modes (exercises the mode gather)
+PANDA_TASKS = ("Reach", "PegInsertion", "DrawerMulti", "Cabinet")
 # kernel vs plain version: one substep as tests/test_pallas.py holds the
-# Pallas kernel; ten substeps compound the ulp-level differences of single
-# float32 ops (FMA contraction, sin/cos/sqrt rounding) through contact
-# thresholds and the Cholesky solve, so the bound is ten times wider
+# Pallas kernel (ant qpos 5e-6 / qvel 5e-5, Panda 1e-5 / 2e-4); more
+# substeps compound the ulp-level differences of single float32 ops
+# (PyTorch's CUDA division by a Python number multiplies by its reciprocal;
+# the kernel divides) through contact thresholds and the Cholesky solve, so
+# those bounds are ten times wider; for Panda's twenty substeps the
+# kp = 2e4 servos amplify them further, and qvel's bound is 25 times wider
+# (2.06e-3 measured on Cabinet, one env of 4096, on an H100)
 TOL = {1: (5e-6, 5e-5), 10: (5e-5, 5e-4)}
+PANDA_TOL = {1: (1e-5, 2e-4), 20: (1e-4, 5e-3)}
+# one H100 SXM (NVIDIA's data sheet): float32 outside the tensor cores, HBM
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+# elementwise ops the plain substep issues on its [B] rows
+ROW_OPS = {"add", "sub", "rsub", "mul", "div", "neg", "abs", "sqrt", "sin",
+           "cos", "clamp", "clamp_min", "clamp_max", "maximum", "minimum",
+           "where", "gt", "lt", "ge", "le", "eq", "ne", "bitwise_and",
+           "bitwise_or", "bitwise_not", "logical_and", "logical_or",
+           "logical_not"}
 
 
 def log(phase: str, msg: str):
@@ -63,6 +104,113 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_ms(fns: dict, reps: int) -> dict:
+    """Median host wall-clock ms of each fn(), every call between two
+    synchronizes, the fns taken in turns after one warm-up each."""
+    for fn in fns.values():
+        fn()
+    times = {k: [] for k in fns}
+    for _ in range(reps):
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def device_ms(fn, reps: int):
+    """(device busy ms, substep kernel ms, device activities) per call of
+    fn(), from a torch.profiler window of `reps` calls after a warm-up: the
+    sums of the device activities' own times. None when the profiler saw
+    no device activity."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = sub = count = 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        busy += e.self_device_time_total
+        count += e.count
+        if e.key.startswith("substep_kernel"):
+            sub += e.self_device_time_total
+    if not busy:
+        return None
+    return busy / 1e3 / reps, sub / 1e3 / reps, count / reps
+
+
+def host_split(actor, env, state, obs, parts: dict, phase: str, smi: str):
+    """Log the host time of one collect step and of its parts (`host_ms`);
+    returns the callables and their times for `device_split`."""
+    zeros = torch.zeros((env.num_envs, env.action_dim), device=obs.device)
+    fns = {"collect step": lambda: actor.collect(env, state, obs, 1),
+           "explore_actions": lambda: actor.act(obs),
+           "env.step": lambda: env.step(state, zeros), **parts}
+    host = host_ms(fns, 20)
+    log(phase, "host ms per call (median of 20, each call between "
+        "synchronizes, parts in turns): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in host.items()) + f" [{smi}]")
+    return fns, host
+
+
+def device_split(fns: dict, host: dict, what: str, smi: str):
+    """Log the device time of each of `host_split`'s callables
+    (`device_ms`) and its idle share of the host time. Runs after every
+    timed phase, so that the profiler slows none of them."""
+    for k, fn in fns.items():
+        dev = device_ms(fn, 10)
+        if dev is None:
+            log("8 profile", f"{what} {k}: not measured (the profiler saw "
+                "no device activity)")
+            continue
+        log("8 profile", f"{what} {k} on the device (torch.profiler, 10 "
+            f"calls): {dev[2]:.0f} device activities, busy {dev[0]:.3f} ms, "
+            f"of which substep_kernel {dev[1]:.3f} ms; idle "
+            f"{1 - dev[0] / host[k]:.1%} of the host time [{smi}]")
+
+
+class RowOpCounter(TorchDispatchMode):
+    """Counts, per env, the elementwise operations run on tensors of B
+    rows: each op adds its output's element count over B."""
+
+    def __init__(self, B: int):
+        super().__init__()
+        self.B = B
+        self.ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = func.overloadpacket.__name__.rstrip("_")
+        if (name in ROW_OPS and isinstance(out, torch.Tensor)
+                and out.numel() % self.B == 0):
+            self.ops += out.numel() // self.B
+        return out
+
+
+def substep_bound(c: SubstepConstants, qpos, qvel, ctrl):
+    """(bound ms, what sets it, flops per env per substep) of one launch of
+    `c.n_substeps` substeps on these inputs: the larger of the flops over
+    the card's fp32 peak and the bytes that must move (qpos, qvel, ctrl
+    read once; qpos, qvel written once) over its HBM rate. The flops are
+    the plain version's elementwise ops on [B] rows for one substep, each
+    counted once (a sqrt, sin, cos or division as one)."""
+    B = qpos.shape[0]
+    counter = RowOpCounter(B)
+    with counter:
+        substep_reference(c, qpos, qvel, ctrl, n_substeps=1)
+    t_ops = counter.ops * c.n_substeps * B / PEAK_FP32_FLOPS
+    t_bytes = 4 * B * (2 * c.nq + 2 * c.nv + c.nu) / PEAK_HBM_BYTES
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes) * 1e3, by, counter.ops
+
+
 def ant_states(init_qpos: np.ndarray, B: int, seed: int, wall: bool):
     """Random ant states as tests/test_pallas.py draws them; with `wall`,
     torsos sit 0.45 m from the start cell's walls moving into them, half
@@ -83,21 +231,210 @@ def ant_states(init_qpos: np.ndarray, B: int, seed: int, wall: bool):
     return tuple(torch.tensor(a, device="cuda") for a in (qpos, qvel, ctrl))
 
 
+def panda_states(m, meta, B: int, seed: int, device="cuda"):
+    """Panda states as tests/test_pallas.py draws them: the init pose plus
+    arm noise U(-0.1, 0.1), qvel U(-0.2, 0.2), servo targets the neutral
+    pose plus U(-0.05, 0.05) and fingers at 0.015."""
+    rng = np.random.RandomState(seed)
+    qpos = np.tile(np.asarray(m.init_qpos)[None], (B, 1)).astype(np.float32)
+    qpos[:, meta["arm_qposadr"]] += rng.uniform(-0.1, 0.1, (B, 7))
+    qvel = rng.uniform(-0.2, 0.2, (B, m.nv)).astype(np.float32)
+    ctrl = np.tile(np.concatenate([meta["neutral"], [0.015, 0.015]])[None],
+                   (B, 1)).astype(np.float32)
+    ctrl[:, :7] += rng.uniform(-0.05, 0.05, (B, 7))
+    return tuple(torch.tensor(a, device=device) for a in (qpos, qvel, ctrl))
+
+
+def drawer_contact_states(m, meta, c: SubstepConstants, B: int, seed: int,
+                          device="cuda"):
+    """DrawerMulti states in which the hand's or a finger's probe sits 1-5
+    mm inside a drawer's front face. Arm poses are drawn uniformly within
+    the joint limits; for a pose whose probe lies within a drawer's y-z
+    extent, that drawer's joint is set from the probe's x (the port's fk)
+    and the servos hold the pose. qvel and the fingers as `panda_states`."""
+    qpos, qvel, ctrl = panda_states(m, meta, B, seed, device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    arm = torch.as_tensor(meta["arm_qposadr"], device=device)
+    lo = torch.tensor(JOINT_LIMIT_LO, device=device)
+    hi = torch.tensor(JOINT_LIMIT_HI, device=device)
+    n = 200 * B
+    cand = torch.tensor(np.asarray(m.init_qpos), device=device).repeat(n, 1)
+    cand[:, arm] = lo + (hi - lo) * torch.rand((n, 7), generator=g,
+                                               device=device)
+    pos, quat = engine.fk(m, cand)
+    pb = torch.as_tensor(c.probe_body, device=device)
+    pw = pos[:, pb] + Q.rotate(quat[:, pb], torch.tensor(c.probe_off,
+                                                         device=device))
+    dpos = torch.tensor(m.body_pos[meta["task_body_idx"]], device=device)
+    half = torch.tensor(c.dbox_half, device=device)              # [4, 3]
+    pen = 0.001 + 0.004 * torch.rand((n, 1), generator=g, device=device)
+    gripper = (meta["hand_idx"], *meta["finger_idx"])
+    found = torch.zeros(n, dtype=torch.bool, device=device)
+    drawer = torch.zeros(n, dtype=torch.long, device=device)
+    joint = torch.zeros(n, device=device)
+    for k in [k for k in range(c.npr) if c.probe_body[k] in gripper]:
+        p = pw[:, k, None]                                        # [n, 1, 3]
+        near = (((p[..., 1] - dpos[:, 1]).abs() < half[:, 1] - 0.01)
+                & ((p[..., 2] - dpos[:, 2]).abs() < half[:, 2] - 0.01))
+        # the drawer slides along -x: front face at x = x0 - q - half_x
+        q = dpos[:, 0] - half[:, 0] - (p[..., 0] + c.probe_rad[k] - pen)
+        ok = near & (q > 0.01) & (q < 0.24) & ~found[:, None]
+        j = torch.argmax(ok.to(torch.int32), dim=1)
+        hit = ok.any(dim=1)
+        drawer = torch.where(hit, j, drawer)
+        joint = torch.where(hit, q.gather(1, j[:, None])[:, 0], joint)
+        found = found | hit
+    idx = torch.nonzero(found)[:B, 0]
+    if idx.numel() < B:
+        raise RuntimeError(f"only {idx.numel()} drawer-contact poses found")
+    qpos[:, arm] = cand[idx][:, arm]
+    adr = torch.as_tensor(meta["task_qposadr"], device=device)[drawer[idx]]
+    qpos[torch.arange(B, device=device), adr] = joint[idx]
+    ctrl[:, :7] = cand[idx][:, arm]
+    return qpos, qvel, ctrl
+
+
+def without_dynamic_boxes(c: SubstepConstants) -> SubstepConstants:
+    return dataclasses.replace(
+        c, ndb=0, dbox_body=(), dbox_ident=(), dbox_pos=c.dbox_pos[:0],
+        dbox_quat=c.dbox_quat[:0], dbox_half=c.dbox_half[:0],
+        dbox_keep=c.dbox_keep[:0])
+
+
+def check_kernel(kern: SubstepKernel, label: str, args, tol, phase: str):
+    """Kernel vs plain version at NUM_ENVS and EVAL_ENVS rows; the smaller
+    launch must give the larger one's first rows bit for bit. Returns the
+    largest error."""
+    outs, worst = {}, 0.0
+    for B in (NUM_ENVS, EVAL_ENVS):
+        sub = tuple(a[:B].contiguous() for a in args)
+        got = kern(*sub)
+        ref = substep_reference(kern.consts, *sub)
+        torch.cuda.synchronize()
+        eq = float((got[0] - ref[0]).abs().max())
+        ev = float((got[1] - ref[1]).abs().max())
+        tq, tv = tol
+        ok = eq <= tq and ev <= tv and all(
+            bool(torch.isfinite(g).all()) for g in got)
+        log(phase, f"{label} B={B} n_substeps={kern.consts.n_substeps}: "
+            f"max|err| qpos {eq:.3e} (tol {tq:g}) qvel {ev:.3e} (tol {tv:g})"
+            f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("kernel disagrees with plain version")
+        worst = max(worst, eq, ev)
+        outs[B] = got
+    for a, b in zip(outs[EVAL_ENVS], outs[NUM_ENVS]):
+        if not torch.equal(a, b[:EVAL_ENVS]):
+            raise RuntimeError(f"{label}: B=20 rows differ from B=4096 rows")
+    return worst
+
+
+def check_collect(env, roll, state, t_before, n_steps: int, what: str):
+    """Finite records of the right shapes, actions in [-1, 1], and
+    auto-reset: an env's clock restarts at 0 on the step it finished.
+    Returns the number of envs that finished inside the window."""
+    B = env.num_envs
+    for k in ("action", "obs", "reward"):
+        if not bool(torch.isfinite(getattr(roll, k)).all()):
+            raise RuntimeError(f"{what}: non-finite {k} in the collect")
+    if roll.action.abs().max() > 1.0:
+        raise RuntimeError(f"{what}: action outside [-1, 1]")
+    if (tuple(roll.obs.shape) != (n_steps, B, env.obs_dim)
+            or tuple(roll.action.shape) != (n_steps, B, env.action_dim)):
+        raise RuntimeError(f"{what}: collect records have the wrong shapes")
+    steps = torch.arange(n_steps, device="cuda")[:, None]
+    last_done = torch.where(roll.done, steps, -1).max(dim=0).values
+    expect_t = torch.where(last_done >= 0, n_steps - 1 - last_done,
+                           t_before + n_steps).to(torch.int32)
+    n_reset = int(roll.done.any(dim=0).sum())
+    if n_reset == 0 or not torch.equal(state.t, expect_t):
+        raise RuntimeError(f"{what}: auto-reset check failed ({n_reset} "
+                           "envs done)")
+    return n_reset
+
+
+class Actor:
+    """The stock-width diffusion policy of `Config()` for one env, with its
+    mode embeddings and noise range (random weights from seed 0)."""
+
+    def __init__(self, env, cfg: Config, gen: torch.Generator):
+        emb_dim = cfg.algo.embedding_dim
+        self.policy = DiffusionPolicy(
+            env.action_dim, env.obs_dim + emb_dim,
+            cfg.diffusion.diffusion_iter, device="cuda",
+            generator=torch.Generator().manual_seed(0))
+        self.embeddings = torch.randn((cfg.algo.max_modes + 1, emb_dim),
+                                      generator=gen, device="cuda")
+        self.num_modes = torch.tensor(NUM_MODES, device="cuda")
+        self.std = (cfg.algo.noise.std_min, cfg.algo.noise.std_max)
+        self.gen = gen
+
+    def collect(self, env, state, obs, n_steps: int):
+        return collect(env, self.policy, state, obs, n_steps, P_EXPLOIT,
+                       self.embeddings, self.num_modes, *self.std,
+                       generator=self.gen)
+
+    def act(self, obs):
+        return explore_actions(self.policy, obs, P_EXPLOIT, self.embeddings,
+                               self.num_modes, *self.std, generator=self.gen)
+
+
+def timed_collect(actor: Actor, env, kernel: SubstepKernel, n_steps: int,
+                  what: str):
+    """Reset with staggered episode clocks (so truncation and auto-reset
+    fall inside the window), one warm-up step, then `n_steps` timed control
+    steps with the kernel's count set to 0 just before and read just after.
+    Returns (state, obs, rollout, seconds, launches, envs reset)."""
+    state, obs = env.reset()
+    t_start = torch.randint(0, env.max_episode_length, (env.num_envs,),
+                            generator=actor.gen, device="cuda",
+                            dtype=torch.int32)
+    state, obs, _ = actor.collect(env, state._replace(t=t_start), obs, 1)
+    t_before = state.t.clone()
+    torch.cuda.synchronize()
+    kernel.launches = 0
+    t0 = time.time()
+    state, obs, roll = actor.collect(env, state, obs, n_steps)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = kernel.launches
+    if launches != n_steps:
+        raise RuntimeError(f"{what}: collect launched the kernel {launches} "
+                           "times")
+    n_reset = check_collect(env, roll, state, t_before, n_steps, what)
+    return state, obs, roll, seconds, launches, n_reset
+
+
+def goal_probe(env, set_qpos, phase: str, where: str):
+    state, _ = env.reset()
+    qpos = state.qpos.clone()
+    set_qpos(qpos)
+    state, _, reward, done, info = env.step(
+        state._replace(qpos=qpos),
+        torch.zeros((env.num_envs, env.action_dim), device="cuda"))
+    got = (float(reward[0]), bool(done[0]), int(info["success"][0]),
+           int(state.t[0]))
+    if got != (10.0, True, 1, 0):
+        raise RuntimeError(f"goal probe: (reward, done, success, t) = {got}")
+    log(phase, f"env 0 {where}: reward {got[0]}, done {got[1]}, success "
+        f"{got[2]}, t {got[3]}")
+
+
+def kernel_entry(name: str, launches: int, err: float, ms: float,
+                 plain_ms: float, bound) -> dict:
+    return {"name": name, "route": "cuda",
+            "source": "ddiffpg_tpu_torch/csrc/substep.cu",
+            "replaces": "ddiffpg_tpu/physics/pallas_ant.py:143",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": None}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
-
-    from ddiffpg_tpu.config import Config
-    from ddiffpg_tpu_torch.agents.ddiffpg import collect, explore_actions
-    from ddiffpg_tpu_torch.envs import make
-    from ddiffpg_tpu_torch.envs.antmaze import AntMazeEnv
-    from ddiffpg_tpu_torch.envs.base import VecEnv
-    from ddiffpg_tpu_torch.models.diffusion import DiffusionPolicy
-    from ddiffpg_tpu_torch.physics.substep import (AntConstants,
-                                                   substep_reference)
-    from ddiffpg_tpu_torch.physics.substep_cuda import SubstepKernel, build
 
     # ---------------------------------------------------------- 1. device
     name = torch.cuda.get_device_name(0)
@@ -106,133 +443,111 @@ def main() -> int:
         raise RuntimeError("TF32 matmul is on; the port runs full float32")
     log("1 device", f"{name} | nvidia-smi: {smi} | torch {torch.__version__}"
         f" cuda {torch.version.cuda} | count {torch.cuda.device_count()}")
+    cfg = Config()
 
     # ---------------------------------------------------------- 2. build
     t0 = time.time()
-    env = make("antmaze-v1", num_envs=NUM_ENVS, random_init=True,
-               device="cuda", seed=0)
-    ant: AntMazeEnv = env.env
-    c10 = ant.consts
-    c1 = AntConstants.from_model(ant.model, n_substeps=1)
-    k10 = SubstepKernel(c10)
-    k1 = SubstepKernel(c1)
-    build_s = time.time() - t0
-    log("2 build", f"substep_ant for n_substeps 10 and 1 built and loaded in "
-        f"{build_s:.1f} s")
-    for c in (c10, c1):
-        report = build(c).with_suffix(".log").read_text().splitlines()
-        for line in report:
+    ant_env = AntMazeEnv(random_init=True, device="cpu")
+    ant_c = {n: SubstepConstants.from_model(ant_env.model, n_substeps=n)
+             for n in (10, 1)}
+    scenes = {task: build_panda_scene(task) for task in PANDA_TASKS}
+    panda_c = {(task, n): SubstepConstants.from_model(m, n_substeps=n)
+               for task, (m, _) in scenes.items() for n in (20, 1)}
+    builds = list(ant_c.values()) + list(panda_c.values())
+    build_all(builds)
+    log("2 build", f"{len(builds)} kernels (ant at 10 and 1 substeps, four "
+        f"Panda scenes at 20 and 1) built in {time.time() - t0:.1f} s")
+    labels = [f"ant n_substeps {n}" for n in ant_c] + [
+        f"{task} n_substeps {n}" for task, n in panda_c]
+    for label, c in zip(labels, builds):
+        for line in build(c).with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
-                log("2 build", f"n_substeps {c.n_substeps}: {line.strip()}")
+                log("2 build", f"{label}: {line.strip()}")
+    t0 = time.time()
+    k10, k1 = SubstepKernel(ant_c[10]), SubstepKernel(ant_c[1])
+    pk = {key: SubstepKernel(c) for key, c in panda_c.items()}
+    log("2 build", f"loaded in {time.time() - t0:.1f} s")
 
-    # ---------------------------------------- 3. kernel vs plain on the card
-    init_qpos = np.asarray(ant.model.init_qpos)
-    nobox = AntConstants.from_model(dataclasses.replace(
-        ant.model, static_box_min=np.zeros((0, 3), np.float32),
-        static_box_max=np.zeros((0, 3), np.float32), nsb=0), n_substeps=1)
-    max_err = 0.0
+    # ------------------------------------ 3. ant kernel vs plain on the card
+    init_qpos = np.asarray(ant_env.model.init_qpos)
+    nobox = dataclasses.replace(
+        ant_c[1], nsb=0, box_min=ant_c[1].box_min[:0],
+        box_max=ant_c[1].box_max[:0])
+    ant_err = 0.0
     for wall in (False, True):
-        qp, qv, ct = ant_states(init_qpos, NUM_ENVS, 3 if wall else 0, wall)
+        args = ant_states(init_qpos, NUM_ENVS, 3 if wall else 0, wall)
         for nsub, kern in ((1, k1), (10, k10)):
-            outs = {}
-            for B in (NUM_ENVS, EVAL_ENVS):
-                args = (qp[:B].contiguous(), qv[:B].contiguous(),
-                        ct[:B].contiguous())
-                got = kern(*args)
-                ref = substep_reference(kern.consts, *args)
-                torch.cuda.synchronize()
-                eq = float((got[0] - ref[0]).abs().max())
-                ev = float((got[1] - ref[1]).abs().max())
-                tq, tv = TOL[nsub]
-                ok = eq <= tq and ev <= tv and all(
-                    bool(torch.isfinite(g).all()) for g in got)
-                log("3 kernel", f"{'wall' if wall else 'random'} B={B} "
-                    f"n_substeps={nsub}: max|err| qpos {eq:.3e} (tol {tq:g})"
-                    f" qvel {ev:.3e} (tol {tv:g}) {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise RuntimeError("kernel disagrees with plain version")
-                max_err = max(max_err, eq, ev)
-                outs[B] = got
-            # the 20-env launch must give the 4096-env launch's first rows
-            for a, b in zip(outs[EVAL_ENVS], outs[NUM_ENVS]):
-                if not torch.equal(a, b[:EVAL_ENVS]):
-                    raise RuntimeError("B=20 rows differ from B=4096 rows")
+            ant_err = max(ant_err, check_kernel(
+                kern, "wall" if wall else "random", args, TOL[nsub],
+                "3 kernel"))
         if wall:
             # the AABB branch fired: walls change the one-substep result
-            free = substep_reference(nobox, qp, qv, ct)[1]
-            walled = k1(qp, qv, ct)[1]
-            dv = float((walled - free).abs().max())
+            free = substep_reference(nobox, *args)[1]
+            dv = float((k1(*args)[1] - free).abs().max())
             log("3 kernel", f"wall batch: max|dqvel| from the walls {dv:.3f}")
             if dv < 1e-2:
                 raise RuntimeError("wall batch made no wall contact")
     qp, qv, ct = ant_states(init_qpos, NUM_ENVS, 0, False)
-    kernel_ms = cuda_ms(lambda: k10(qp, qv, ct), 50)
-    plain_ms = cuda_ms(lambda: substep_reference(c10, qp, qv, ct), 3)
+    ant_ms = cuda_ms(lambda: k10(qp, qv, ct), 50)
+    ant_plain_ms = cuda_ms(lambda: substep_reference(k10.consts, qp, qv, ct),
+                           3)
+    ant_bound = substep_bound(k10.consts, qp, qv, ct)
     log("3 kernel", f"one control step (10 substeps) at B={NUM_ENVS}: kernel "
-        f"{kernel_ms:.4f} ms, plain PyTorch {plain_ms:.2f} ms [{smi}]")
+        f"{ant_ms:.4f} ms, plain PyTorch {ant_plain_ms:.2f} ms, bound "
+        f"{ant_bound[0]:.5f} ms ({ant_bound[1]}, {ant_bound[2]} flops per "
+        f"env per substep) [{smi}]")
 
-    # ---------------------------------------------------------- 4. slice
-    cfg = Config()
-    emb_dim = cfg.algo.embedding_dim
+    # ---------------------------------- 3p. Panda kernel vs plain on the card
+    panda_err = {task: 0.0 for task in PANDA_TASKS}
+    for task, (m, meta) in scenes.items():
+        for nsub in (1, 20):
+            kern = pk[(task, nsub)]
+            batches = [("random", panda_states(m, meta, NUM_ENVS, 1))]
+            if task == "DrawerMulti":
+                batches.append(("contact", drawer_contact_states(
+                    m, meta, kern.consts, NUM_ENVS, 2)))
+            for label, args in batches:
+                panda_err[task] = max(panda_err[task], check_kernel(
+                    kern, f"{task} {label}", args, PANDA_TOL[nsub],
+                    "3p panda"))
+                if label == "contact" and nsub == 1:
+                    # stage g fired: the drawers change the one-substep result
+                    free = substep_reference(
+                        without_dynamic_boxes(kern.consts), *args)[1]
+                    dv = float((kern(*args)[1] - free).abs().max())
+                    log("3p panda", f"contact batch: max|dqvel| from the "
+                        f"drawers {dv:.3f}")
+                    if dv < 1e-2:
+                        raise RuntimeError("contact batch touched no drawer")
+    panda_ms, panda_plain_ms, panda_bound = {}, {}, {}
+    for task in ("DrawerMulti", "Reach"):
+        m, meta = scenes[task]
+        kern = pk[(task, 20)]
+        qp, qv, ct = panda_states(m, meta, NUM_ENVS, 1)
+        panda_ms[task] = cuda_ms(lambda: kern(qp, qv, ct), 20)
+        panda_plain_ms[task] = cuda_ms(
+            lambda: substep_reference(kern.consts, qp, qv, ct), 2)
+        panda_bound[task] = substep_bound(kern.consts, qp, qv, ct)
+        log("3p panda", f"{task} one control step (20 substeps) at "
+            f"B={NUM_ENVS}: kernel {panda_ms[task]:.4f} ms, plain PyTorch "
+            f"{panda_plain_ms[task]:.2f} ms, bound {panda_bound[task][0]:.5f}"
+            f" ms ({panda_bound[task][1]}, {panda_bound[task][2]} flops per "
+            f"env per substep) [{smi}]")
+
+    # ---------------------------------------------------- 4. antmaze-v1 slice
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    policy = DiffusionPolicy(
-        env.action_dim, env.obs_dim + emb_dim, cfg.diffusion.diffusion_iter,
-        device="cuda", generator=torch.Generator().manual_seed(0))
-    embeddings = torch.randn((cfg.algo.max_modes + 1, emb_dim),
-                             generator=gen, device="cuda")
-    num_modes = torch.tensor(NUM_MODES, device="cuda")
-    std = (cfg.algo.noise.std_min, cfg.algo.noise.std_max)
-    state, obs = env.reset()
-    # staggered episode clocks, so truncation and auto-reset fall inside
-    # the 64-step window
-    t_start = torch.randint(0, env.max_episode_length, (NUM_ENVS,),
-                            generator=gen, device="cuda", dtype=torch.int32)
-    state = state._replace(t=t_start)
-    state, obs, _ = collect(env, policy, state, obs, 1, P_EXPLOIT,
-                            embeddings, num_modes, *std, generator=gen)
-    t_before = state.t.clone()
-    torch.cuda.synchronize()
-    ant.kernel.launches = 0
-    t0 = time.time()
-    state, obs, roll = collect(env, policy, state, obs, N_STEPS, P_EXPLOIT,
-                               embeddings, num_modes, *std, generator=gen)
-    torch.cuda.synchronize()
-    collect_s = time.time() - t0
-    launches = ant.kernel.launches
-    sps = NUM_ENVS * N_STEPS / collect_s
-    if launches != N_STEPS:
-        raise RuntimeError(f"collect launched the kernel {launches} times")
-    for k in ("action", "obs", "reward"):
-        if not bool(torch.isfinite(getattr(roll, k)).all()):
-            raise RuntimeError(f"non-finite {k} in the collect")
-    if roll.action.abs().max() > 1.0:
-        raise RuntimeError("action outside [-1, 1]")
-    shape_ok = (tuple(roll.obs.shape) == (N_STEPS, NUM_ENVS, env.obs_dim)
-                and tuple(roll.action.shape)
-                == (N_STEPS, NUM_ENVS, env.action_dim))
-    if not shape_ok:
-        raise RuntimeError("collect records have the wrong shapes")
-    # auto-reset: an env's clock restarts at 0 on the step it finished
-    steps = torch.arange(N_STEPS, device="cuda")[:, None]
-    last_done = torch.where(roll.done, steps, -1).max(dim=0).values
-    expect_t = torch.where(last_done >= 0, N_STEPS - 1 - last_done,
-                           t_before + N_STEPS).to(torch.int32)
-    n_reset = int(roll.done.any(dim=0).sum())
-    if n_reset == 0 or not torch.equal(state.t, expect_t):
-        raise RuntimeError(f"auto-reset check failed ({n_reset} envs done)")
-    log("4 slice", f"collect {N_STEPS} steps x {NUM_ENVS} envs: "
-        f"{collect_s:.3f} s, {sps:.0f} env steps/s, kernel launches "
-        f"{launches}, envs auto-reset {n_reset}, goals reached "
+    env = make("antmaze-v1", num_envs=NUM_ENVS, random_init=True,
+               device="cuda", seed=0)
+    ant: AntMazeEnv = env.env
+    actor = Actor(env, cfg, gen)
+    state, obs, roll, secs, ant_launches, n_reset = timed_collect(
+        actor, env, ant.kernel, N_STEPS, "antmaze-v1")
+    log("4 slice", f"collect {N_STEPS} steps x {NUM_ENVS} envs: {secs:.3f} "
+        f"s, {NUM_ENVS * N_STEPS / secs:.0f} env steps/s, kernel launches "
+        f"{ant_launches}, envs auto-reset {n_reset}, goals reached "
         f"{int((roll.success > 0).sum())} [{smi}]")
-
-    actor_ms = cuda_ms(lambda: explore_actions(
-        policy, obs, P_EXPLOIT, embeddings, num_modes, *std, generator=gen),
-        20)
-    step_ms = cuda_ms(lambda: env.step(
-        state, torch.zeros((NUM_ENVS, env.action_dim), device="cuda")), 20)
-    log("4 slice", f"per control step: explore_actions {actor_ms:.3f} ms, "
-        f"env.step {step_ms:.3f} ms [{smi}]")
+    ant_split = host_split(actor, env, state, obs, {}, "4 slice", smi)
 
     class PlainPhysicsAntMaze(AntMazeEnv):
         """The same env with the plain PyTorch substep, for timing only."""
@@ -244,9 +559,7 @@ def main() -> int:
                        NUM_ENVS)
     torch.cuda.synchronize()
     t0 = time.time()
-    _, _, plain_roll = collect(plain_env, policy, state, obs, N_PLAIN_STEPS,
-                               P_EXPLOIT, embeddings, num_modes, *std,
-                               generator=gen)
+    _, _, plain_roll = actor.collect(plain_env, state, obs, N_PLAIN_STEPS)
     torch.cuda.synchronize()
     plain_sps = NUM_ENVS * N_PLAIN_STEPS / (time.time() - t0)
     if not bool(torch.isfinite(plain_roll.obs).all()):
@@ -255,26 +568,77 @@ def main() -> int:
         f"env steps/s over {N_PLAIN_STEPS} steps [{smi}]")
 
     # ---------------------------------------------------------- 5. goal probe
-    state, _ = env.reset()
-    qpos = state.qpos.clone()
-    qpos[0, :2] = torch.tensor([-7.8, 0.1], device="cuda")
-    state = state._replace(qpos=qpos)
-    state, _, reward, done, info = env.step(
-        state, torch.zeros((NUM_ENVS, env.action_dim), device="cuda"))
-    got = (float(reward[0]), bool(done[0]), int(info["success"][0]),
-           int(state.t[0]))
-    if got != (10.0, True, 1, 0):
-        raise RuntimeError(f"goal probe: (reward, done, success, t) = {got}")
-    log("5 goal", f"env 0 at (-7.8, 0.1): reward {got[0]}, done {got[1]}, "
-        f"success {got[2]}, t {got[3]}")
+    goal_probe(env, lambda q: q[0, :2].copy_(
+        torch.tensor([-7.8, 0.1], device="cuda")), "5 goal", "at (-7.8, 0.1)")
 
-    # ---------------------------------------------------------- 6. result
-    print(json.dumps({"kernels": [{
-        "name": "substep_ant", "route": "cuda",
-        "source": "ddiffpg_tpu_torch/csrc/substep_ant.cu",
-        "replaces": "ddiffpg_tpu/physics/pallas_ant.py:143",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms}]}))
+    # ----------------------------------------------------- 6. Panda slice
+    env = make("PandaDrawerMultiJoints-v3", num_envs=NUM_ENVS, device="cuda",
+               seed=0)
+    drawer: PandaTaskEnv = env.env
+    actor = Actor(env, cfg, gen)
+    state, obs, roll, secs, drawer_launches, n_reset = timed_collect(
+        actor, env, drawer.kernel, N_STEPS, "PandaDrawerMultiJoints-v3")
+    log("6 panda", f"DrawerMulti collect {N_STEPS} steps x {NUM_ENVS} envs: "
+        f"{secs:.3f} s, {NUM_ENVS * N_STEPS / secs:.0f} env steps/s, kernel "
+        f"launches {drawer_launches}, envs auto-reset {n_reset}, drawers "
+        f"closed {int((roll.success > 0).sum())} [{smi}]")
+    ctrl = drawer._ctrl_from_action(
+        state.qpos, torch.zeros((NUM_ENVS, env.action_dim), device="cuda"))
+    drawer_split = host_split(actor, env, state, obs, {
+        "ee state": lambda s=state: drawer._ee_state(s.qpos, s.qvel),
+        "kernel": lambda s=state, c=ctrl: drawer.kernel(s.qpos, s.qvel, c)},
+        "6 panda", smi)
+
+    class PlainPhysicsPanda(PandaTaskEnv):
+        """The same env with the plain PyTorch substep, for timing only."""
+
+        def _physics(self, qpos, qvel, ctrl):
+            return substep_reference(self.consts, qpos, qvel, ctrl)
+
+    plain_env = VecEnv(PlainPhysicsPanda("DrawerMulti", device="cuda"),
+                       NUM_ENVS)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    _, _, plain_roll = actor.collect(plain_env, state, obs,
+                                     N_PANDA_PLAIN_STEPS)
+    torch.cuda.synchronize()
+    plain_sps = NUM_ENVS * N_PANDA_PLAIN_STEPS / (time.time() - t0)
+    if not bool(torch.isfinite(plain_roll.obs).all()):
+        raise RuntimeError("non-finite obs with the plain physics")
+    log("6 panda", f"DrawerMulti collect with the plain PyTorch substep: "
+        f"{plain_sps:.0f} env steps/s over {N_PANDA_PLAIN_STEPS} steps "
+        f"[{smi}]")
+
+    reach_env = make("PandaReachJoints-v3", num_envs=NUM_ENVS, device="cuda",
+                     seed=0)
+    reach_actor = Actor(reach_env, cfg, gen)
+    _, _, _, secs, reach_launches, n_reset = timed_collect(
+        reach_actor, reach_env, reach_env.env.kernel, N_REACH_STEPS,
+        "PandaReachJoints-v3")
+    log("6 panda", f"Reach collect {N_REACH_STEPS} steps x {NUM_ENVS} envs: "
+        f"{secs:.3f} s, {NUM_ENVS * N_REACH_STEPS / secs:.0f} env steps/s, "
+        f"kernel launches {reach_launches}, envs auto-reset {n_reset} "
+        f"[{smi}]")
+
+    # ------------------------------------------------- 7. Panda goal probe
+    goal_probe(env, lambda q: q[0, int(drawer.task_adr[0])].fill_(0.0),
+               "7 goal", "with drawer 0 at 0.0")
+
+    # ------------------------------------------ 8. device time of a step
+    device_split(*ant_split, "antmaze-v1", smi)
+    device_split(*drawer_split, "PandaDrawerMultiJoints-v3", smi)
+
+    # ---------------------------------------------------------- 9. result
+    print(json.dumps({"kernels": [
+        kernel_entry("substep_ant", ant_launches, ant_err, ant_ms,
+                     ant_plain_ms, ant_bound),
+        kernel_entry("substep_panda_drawermulti", drawer_launches,
+                     panda_err["DrawerMulti"], panda_ms["DrawerMulti"],
+                     panda_plain_ms["DrawerMulti"],
+                     panda_bound["DrawerMulti"]),
+        kernel_entry("substep_panda_reach", reach_launches,
+                     panda_err["Reach"], panda_ms["Reach"],
+                     panda_plain_ms["Reach"], panda_bound["Reach"])]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

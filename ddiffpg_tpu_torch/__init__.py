@@ -1,15 +1,17 @@
 """ddiffpg_tpu_torch — the PyTorch + CUDA port of ddiffpg_tpu.
 
 The JAX package `ddiffpg_tpu` stays the reference; this package holds the
-ported modules under the same names, and imports `torch`, never `jax`.
-Ported so far: DDiffPG's antmaze-v1 collect path (diffusion actor acting,
-mode-embedding mixing, mixed exploration noise, batched ant physics with
-auto-reset). On an NVIDIA card the physics substep runs as the hand-written
-CUDA kernel `csrc/substep_ant.cu`; on the CPU it runs its plain PyTorch
-version.
+ported modules under the same names, imports `torch`, never `jax`, and
+nothing of `ddiffpg_tpu` (it keeps its own copies of the framework-free
+modules it needs). Ported so far: DDiffPG's collect path (diffusion actor
+acting, mode-embedding mixing, mixed exploration noise, batched physics
+with auto-reset) on antmaze-v1 and the Panda tasks with joint control. On
+an NVIDIA card the physics substep runs as the hand-written CUDA kernel
+`csrc/substep.cu`; on the CPU it runs its plain PyTorch version.
 
-  physics/   — scene builders, the substep (plain + CUDA kernel)
-  envs/      — antmaze-v1 batched env, registry
+  config.py  — the configuration dataclasses (copy)
+  physics/   — scene builders, kinematics, the substep (plain + CUDA kernel)
+  envs/      — antmaze-v1 and Panda batched envs, registry
   ops/       — DDPM tables and steps, mode embeddings, exploration noise
   models/    — the DDPM diffusion policy
   agents/    — DDiffPG acting (explore_actions, collect)

@@ -1,47 +1,67 @@
-// Fused rigid-body substep of the ant, one thread per env.
+// Fused rigid-body substep, one thread per env.
 //
 // Replaces ddiffpg_tpu/physics/pallas_ant.py:make_substep_kernel (the Pallas
-// TPU kernel launched at pallas_ant.py:789). It computes what that kernel's
-// substep_math computes, in the same stage order and with the same summation
-// order as the plain PyTorch version in physics/substep.py:
+// TPU kernel launched at pallas_ant.py:789) for its whole model class: FREE
+// roots, HINGE/SLIDE/FIXED joints anchored at the body origin with several
+// roots allowed, torque motors and gravity-compensated PD position servos,
+// sphere/capsule probes against the ground plane, static AABBs and dynamic
+// (body-attached) OBBs. It computes what that kernel's substep_math
+// computes, in the same stage order and with the same summation order as
+// the plain PyTorch version in physics/substep.py:
 //   FK -> robot-centred frame -> motion subspaces and body velocities ->
 //   6x6 inertias -> probe contacts vs plane and static AABBs (separation
 //   gate, impulse cap) -> per-body impulse and global thrust budgets ->
-//   RNEA bias -> CRBA -> torque motors, damping, limit springs ->
-//   Cholesky solve -> semi-implicit integration with clamps.
-// The model class is the ant's (FREE root + HINGE children, torque motors,
-// sphere/capsule probes); physics/substep.py:check_ant_class guards it.
+//   dynamic OBBs with their reaction on the box body (stage g) ->
+//   RNEA bias -> servo gravity compensation -> CRBA -> servos, motors,
+//   damping, limit springs -> Cholesky solve -> semi-implicit integration
+//   with clamps and inelastic limit stops.
+// physics/substep.py:check_supported guards the class.
 //
 // What bounds it on the card: latency of a long dependent chain of scalar
-// fp32 work per env (~10^4 flops per substep) with per-env state far above
-// the register file (inertias, mass matrix), so much of it lives in local
-// memory (L1/L2): ptxas gives 211 registers and a 4464-byte stack frame a
-// thread, and at 4096 envs the launch is 128 warps for 132 SMs (2.48 ms for
-// 10 substeps on an H100 80GB HBM3 at 700 W). Global memory is read once
-// and written once per launch.
-// Design: sizes are compile-time defines (-DNB ... -DNSUB), model arrays
-// sit in __constant__ memory, uploaded once when the library is loaded;
-// threads with env >= B return, so any batch size runs (no tile padding).
+// fp32 work per env (1.1e4 to 7.1e4 elementwise ops per substep, Panda
+// Reach to the ant), with per-env state far above the register file
+// (inertias, mass matrix), so much of it lives in local memory (L1/L2) and
+// the kernel accepts that: ptxas gives the ant 223 registers and a
+// 4640-byte stack frame a thread, DrawerMulti 166 and 5664 bytes (no
+// spills), and at 4096 envs the launch is 128 warps for 132 SMs. Global
+// memory is read once and written once per launch. The work's bound is
+// set by operations; PERF.md holds the times against it.
+// Design: one walk of the joint tree serves every model (for the ant it
+// costs ~2% against a walk that hard-codes its tree, on an H100; PERF.md);
+// sizes and the Panda-only stages are compile-time defines (-DNB ...
+// -DNSUB, -DHAS_SERVO, -DNDB), so the ant's build compiles no servo and no
+// dynamic-box code, and the loops over bodies branch on joint types read
+// from __constant__ memory, the same for every thread of a warp; model
+// arrays sit in __constant__ memory, uploaded once when the library is
+// loaded; threads with env >= B return, so any batch size runs (no tile
+// padding).
 //
 // Numerics: every literal carries an f suffix (no fp64 promotion); built
 // without --use_fast_math and with -fmad=false, so each a*b+c rounds twice
 // as in the plain version. min/max propagate NaN like torch/jnp so broken
-// states stay non-finite and the env resets them.
+// states stay non-finite.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #if !defined(NB) || !defined(NV) || !defined(NQ) || !defined(NU) || \
-    !defined(NPR) || !defined(NSB) || !defined(NSUB)
-#error "NB, NV, NQ, NU, NPR, NSB and NSUB must be defined"
+    !defined(NPR) || !defined(NSB) || !defined(NDB) || !defined(NSUB) || \
+    !defined(HAS_SERVO)
+#error "NB, NV, NQ, NU, NPR, NSB, NDB, NSUB and HAS_SERVO must be defined"
 #endif
 #define NSB_ALLOC (NSB > 0 ? NSB : 1)
+#define NDB_ALLOC (NDB > 0 ? NDB : 1)
 #define NLT (NV * (NV + 1) / 2)
+
+enum { J_FREE = 0, J_HINGE = 1, J_SLIDE = 2, J_FIXED = 3 };
 
 // All members are 4 bytes wide, so the layout has no padding; the ctypes
 // mirror in physics/substep_cuda.py lists the same fields in this order.
-struct AntModel {
+struct SubstepModel {
   int parent[NB];
+  int jnt_type[NB];
+  int qposadr[NB];
+  int dofadr[NB];
   int ident_quat[NB];
   int anc_mask[NB];
   float axis[NB][3];
@@ -55,8 +75,14 @@ struct AntModel {
   float lim_lo[NV];
   float lim_hi[NV];
   int lim_on[NV];
+  int dof_body[NV];
   int act_dof[NU];
   float act_gear[NU];
+  int act_type[NU];
+  float act_kp[NU];
+  float act_kd[NU];
+  float act_force[NU];
+  int act_qadr[NU];
   int probe_body[NPR];
   float probe_off[NPR][3];
   float probe_rad[NPR];
@@ -65,12 +91,18 @@ struct AntModel {
   float probe_cn[NPR];
   float box_min[NSB_ALLOC][3];
   float box_max[NSB_ALLOC][3];
+  int dbox_body[NDB_ALLOC];
+  int dbox_ident[NDB_ALLOC];
+  float dbox_pos[NDB_ALLOC][3];
+  float dbox_quat[NDB_ALLOC][4];
+  float dbox_half[NDB_ALLOC][3];
+  float dbox_keep[NDB_ALLOC][NPR];  // 0 for the box body's own probes
   float gravity[3];
   float dt, inv_nb, capk_scale, inv_vreb, vreb, vtol, vtol_eps, lim_k, lim_c,
       vmax, support_f, m_total, inv_m_total;
 };
 
-__constant__ AntModel c_m;
+__constant__ SubstepModel c_m;
 
 struct V3 {
   float x, y, z;
@@ -100,6 +132,14 @@ __device__ __forceinline__ V3 mk(float x, float y, float z) {
   return r;
 }
 __device__ __forceinline__ V3 ld3(const float* p) { return mk(p[0], p[1], p[2]); }
+__device__ __forceinline__ Q4 ldq(const float* p) {
+  Q4 r;
+  r.w = p[0];
+  r.x = p[1];
+  r.y = p[2];
+  r.z = p[3];
+  return r;
+}
 __device__ __forceinline__ V3 vadd(V3 a, V3 b) {
   return mk(a.x + b.x, a.y + b.y, a.z + b.z);
 }
@@ -169,18 +209,15 @@ __device__ __forceinline__ SV i6vec(const float blk[6][6], SV s) {
   return out;
 }
 
-struct Contact {
-  float fx, fy, fz, fn, vn_body;
-};
-
 // Penalty normal force with separation gate and impulse cap, regularised
-// Coulomb friction (pallas_ant.py:387-406).
-__device__ __forceinline__ Contact contact_force(float dist, V3 n, V3 v, V3 vb,
-                                                 float kn, float cn,
-                                                 float fric) {
-  const float pen = maxp(-dist, 0.0f);
+// Coulomb friction on the (relative) velocity v (pallas_ant.py:387-406,
+// 545-560). Returns the force; f_n is the normal impulse rate.
+__device__ __forceinline__ V3 penalty_force(float dist, V3 n, V3 v, float kn,
+                                            float cn, float fric, float& f_n,
+                                            float& pen) {
+  pen = maxp(-dist, 0.0f);
   const float v_n = v.x * n.x + v.y * n.y + v.z * n.z;
-  float f_n = maxp(kn * pen - cn * v_n, 0.0f);
+  f_n = maxp(kn * pen - cn * v_n, 0.0f);
   f_n = pen > 0.0f ? f_n : 0.0f;
   f_n = f_n * clipp(1.0f - v_n * c_m.inv_vreb, 0.0f, 1.0f);
   const float cap_k = kn * c_m.capk_scale;
@@ -191,52 +228,98 @@ __device__ __forceinline__ Contact contact_force(float dist, V3 n, V3 v, V3 vb,
   const float vt = sqrtf(tx * tx + ty * ty + tz * tz + c_m.vtol_eps);
   const float scale = minp(vt / c_m.vtol, 1.0f);
   const float ft = -fric * f_n * scale / vt;
+  return mk(f_n * n.x + ft * tx, f_n * n.y + ft * ty, f_n * n.z + ft * tz);
+}
+
+struct Contact {
+  float fx, fy, fz, fn, vn_body;
+};
+
+// World contact: also the body's normal velocity for the impulse budget.
+__device__ __forceinline__ Contact contact_force(float dist, V3 n, V3 v, V3 vb,
+                                                 float kn, float cn,
+                                                 float fric) {
+  float f_n, pen;
+  const V3 f = penalty_force(dist, n, v, kn, cn, fric, f_n, pen);
   const float v_cn = vb.x * n.x + vb.y * n.y + vb.z * n.z;
   Contact r;
-  r.fx = f_n * n.x + ft * tx;
-  r.fy = f_n * n.y + ft * ty;
-  r.fz = f_n * n.z + ft * tz;
+  r.fx = f.x;
+  r.fy = f.y;
+  r.fz = f.z;
   r.fn = f_n;
   r.vn_body = pen > 0.0f ? v_cn : 1e9f;  // sentinel: not in contact
   return r;
 }
 
-__device__ __forceinline__ int dof_body(int d) { return d < 6 ? 0 : d - 5; }
+// Nearest face of a box from its six face distances (-x, +x, -y, +y, -z,
+// +z), first in face order on ties: returns the distance, sets the normal.
+__device__ __forceinline__ float nearest_face(const float fl[6], float ni[3]) {
+  float d_in = fl[0];
+#pragma unroll
+  for (int f = 1; f < 6; ++f) d_in = minp(d_in, fl[f]);
+  ni[0] = ni[1] = ni[2] = 0.0f;
+  bool chosen = false;
+#pragma unroll
+  for (int f = 0; f < 6; ++f) {
+    const bool hit = (fl[f] <= d_in) && !chosen;
+    if (hit) {
+      ni[0] = ni[1] = ni[2] = 0.0f;
+      ni[f >> 1] = (f & 1) ? 1.0f : -1.0f;
+    }
+    chosen = chosen || hit;
+  }
+  return d_in;
+}
+
+__device__ __forceinline__ int dof_body(int d) { return c_m.dof_body[d]; }
+__device__ __forceinline__ bool one_dof(int t) {
+  return t == J_HINGE || t == J_SLIDE;
+}
 __device__ __forceinline__ int lt(int i, int j) { return i * (i + 1) / 2 + j; }
 
 __device__ void substep(float q[NQ], float qd[NV], const float ctrl[NU]) {
   const float dt = c_m.dt;
 
-  // ---------------- FK (FREE root, HINGE children)
+  // ---------------- FK: FREE roots; HINGE, SLIDE, FIXED anywhere; other
+  // roots keep their constant frame
   V3 pos[NB];
   Q4 quat[NB];
-  pos[0] = mk(q[0], q[1], q[2]);
-  quat[0].w = q[3];
-  quat[0].x = q[4];
-  quat[0].y = q[5];
-  quat[0].z = q[6];
 #pragma unroll 1
-  for (int i = 1; i < NB; ++i) {
-    const int p = c_m.parent[i];
-    const V3 p0 = vadd(pos[p], qrot(quat[p], ld3(c_m.body_pos[i])));
-    Q4 q0 = quat[p];
-    if (!c_m.ident_quat[i]) {
-      Q4 bq;
-      bq.w = c_m.body_quat[i][0];
-      bq.x = c_m.body_quat[i][1];
-      bq.y = c_m.body_quat[i][2];
-      bq.z = c_m.body_quat[i][3];
-      q0 = qmul(quat[p], bq);
+  for (int i = 0; i < NB; ++i) {
+    const int t = c_m.jnt_type[i], qa = c_m.qposadr[i];
+    if (t == J_FREE) {
+      pos[i] = mk(q[qa], q[qa + 1], q[qa + 2]);
+      quat[i] = ldq(q + qa + 3);
+      continue;
     }
-    const float half = q[6 + i] * 0.5f;
-    const float s = sinf(half);
-    Q4 qj;
-    qj.w = cosf(half);
-    qj.x = c_m.axis[i][0] * s;
-    qj.y = c_m.axis[i][1] * s;
-    qj.z = c_m.axis[i][2] * s;
-    quat[i] = qmul(q0, qj);
-    pos[i] = p0;
+    const int p = c_m.parent[i];
+    V3 p0;
+    Q4 q0;
+    if (p >= 0) {
+      p0 = vadd(pos[p], qrot(quat[p], ld3(c_m.body_pos[i])));
+      q0 = quat[p];
+      if (!c_m.ident_quat[i]) q0 = qmul(quat[p], ldq(c_m.body_quat[i]));
+    } else {
+      p0 = ld3(c_m.body_pos[i]);
+      q0 = ldq(c_m.body_quat[i]);
+    }
+    if (t == J_HINGE) {
+      const float half = q[qa] * 0.5f;
+      const float s = sinf(half);
+      Q4 qj;
+      qj.w = cosf(half);
+      qj.x = c_m.axis[i][0] * s;
+      qj.y = c_m.axis[i][1] * s;
+      qj.z = c_m.axis[i][2] * s;
+      quat[i] = qmul(q0, qj);
+      pos[i] = p0;
+    } else if (t == J_SLIDE) {
+      pos[i] = vadd(p0, vscale(qrot(q0, ld3(c_m.axis[i])), q[qa]));
+      quat[i] = q0;
+    } else {  // FIXED
+      pos[i] = p0;
+      quat[i] = q0;
+    }
   }
 
   // ---------------- robot-centred frame about the body centroid
@@ -246,42 +329,53 @@ __device__ void substep(float q[NQ], float qd[NV], const float ctrl[NU]) {
   V3 posr[NB];
   for (int i = 0; i < NB; ++i) posr[i] = vsub(pos[i], p0);
 
-  // ---------------- motion subspaces
+  // ---------------- motion subspaces, qvel -> u, body spatial velocities
   SV S[NV];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    float e[3] = {0.0f, 0.0f, 0.0f};
-    e[k] = 1.0f;
-    S[k].a = mk(0.0f, 0.0f, 0.0f);
-    S[k].l = mk(e[0], e[1], e[2]);
-    S[3 + k].a = mk(e[0], e[1], e[2]);
-    S[3 + k].l = mk(0.0f, 0.0f, 0.0f);
-  }
-#pragma unroll 1
-  for (int i = 1; i < NB; ++i) {
-    const V3 w = qrot(quat[i], ld3(c_m.axis[i]));
-    S[5 + i].a = w;
-    S[5 + i].l = vcross(posr[i], w);
-  }
-
-  // ---------------- qvel -> u (free joint: (v_origin, omega))
   float u[NV];
   for (int d = 0; d < NV; ++d) u[d] = qd[d];
-  {
-    const V3 vo = vsub(mk(qd[0], qd[1], qd[2]),
-                       vcross(mk(qd[3], qd[4], qd[5]), posr[0]));
-    u[0] = vo.x;
-    u[1] = vo.y;
-    u[2] = vo.z;
-  }
-
-  // ---------------- body spatial velocities
   SV V[NB];
-  V[0].a = mk(u[3], u[4], u[5]);
-  V[0].l = mk(u[0], u[1], u[2]);
+  const V3 zero3 = mk(0.0f, 0.0f, 0.0f);
 #pragma unroll 1
-  for (int i = 1; i < NB; ++i)
-    V[i] = sv_add(V[c_m.parent[i]], sv_scale(S[5 + i], u[5 + i]));
+  for (int i = 0; i < NB; ++i) {
+    const int t = c_m.jnt_type[i], d = c_m.dofadr[i], p = c_m.parent[i];
+    SV base;
+    if (p >= 0) {
+      base = V[p];
+    } else {
+      base.a = zero3;
+      base.l = zero3;
+    }
+    if (t == J_FREE) {
+      for (int k = 0; k < 3; ++k) {
+        float e[3] = {0.0f, 0.0f, 0.0f};
+        e[k] = 1.0f;
+        S[d + k].a = zero3;
+        S[d + k].l = mk(e[0], e[1], e[2]);
+        S[d + 3 + k].a = mk(e[0], e[1], e[2]);
+        S[d + 3 + k].l = zero3;
+      }
+      const V3 vo = vsub(mk(qd[d], qd[d + 1], qd[d + 2]),
+                         vcross(mk(qd[d + 3], qd[d + 4], qd[d + 5]),
+                                posr[i]));
+      u[d] = vo.x;
+      u[d + 1] = vo.y;
+      u[d + 2] = vo.z;
+      V[i].a = mk(u[d + 3], u[d + 4], u[d + 5]);
+      V[i].l = vo;
+    } else if (one_dof(t)) {
+      const V3 w = qrot(quat[i], ld3(c_m.axis[i]));
+      if (t == J_HINGE) {
+        S[d].a = w;
+        S[d].l = vcross(posr[i], w);
+      } else {
+        S[d].a = zero3;
+        S[d].l = w;
+      }
+      V[i] = sv_add(base, sv_scale(S[d], u[d]));
+    } else {  // FIXED: the parent's motion
+      V[i] = base;
+    }
+  }
 
   // ---------------- 6x6 spatial inertias about p0
   float I6[NB][6][6];
@@ -327,6 +421,9 @@ __device__ void substep(float q[NQ], float qd[NV], const float ctrl[NU]) {
   // ---------------- contacts: probes vs plane + static boxes
   float fx[NPR], fy[NPR], fz[NPR], imp[NPR], vmin[NPR];
   V3 pr[NPR];  // probe point relative to p0 (torque arm)
+#if NDB > 0
+  V3 pwa[NPR], vva[NPR];  // probe point and velocity, for stage g
+#endif
 #pragma unroll 1
   for (int k = 0; k < NPR; ++k) {
     const int b = c_m.probe_body[k];
@@ -335,6 +432,10 @@ __device__ void substep(float q[NQ], float qd[NV], const float ctrl[NU]) {
     const V3 vv = vadd(V[b].l, vcross(V[b].a, vadd(posr[b], rq)));
     const V3 vb = vadd(V[b].l, vcross(V[b].a, posr[b]));
     pr[k] = vsub(pw, p0);
+#if NDB > 0
+    pwa[k] = pw;
+    vva[k] = vv;
+#endif
     const float rad = c_m.probe_rad[k], fric = c_m.probe_fric[k];
     const float kn = c_m.probe_kn[k], cn = c_m.probe_cn[k];
 
@@ -354,21 +455,8 @@ __device__ void substep(float q[NQ], float qd[NV], const float ctrl[NU]) {
       const float inv = 1.0f / (outside ? d_out : 1.0f);
       const float fl[6] = {pw.x - bmin.x, bmax.x - pw.x, pw.y - bmin.y,
                            bmax.y - pw.y, pw.z - bmin.z, bmax.z - pw.z};
-      float d_in = fl[0];
-#pragma unroll
-      for (int f = 1; f < 6; ++f) d_in = minp(d_in, fl[f]);
-      // nearest face, first in face order on ties
-      float ni[3] = {0.0f, 0.0f, 0.0f};
-      bool chosen = false;
-#pragma unroll
-      for (int f = 0; f < 6; ++f) {
-        const bool hit = (fl[f] <= d_in) && !chosen;
-        if (hit) {
-          ni[0] = ni[1] = ni[2] = 0.0f;
-          ni[f >> 1] = (f & 1) ? 1.0f : -1.0f;
-        }
-        chosen = chosen || hit;
-      }
+      float ni[3];
+      const float d_in = nearest_face(fl, ni);
       const V3 n = outside ? mk(dx * inv, dy * inv, dz * inv)
                            : mk(ni[0], ni[1], ni[2]);
       const float dist = (outside ? d_out : -d_in) - rad;
@@ -430,31 +518,96 @@ __device__ void substep(float q[NQ], float qd[NV], const float ctrl[NU]) {
   for (int k = 1; k < NPR; ++k) f_up = f_up + maxp(fz[k], 0.0f);
   const float s_up = minp(allow_up / maxp(f_up, 1e-9f), 1.0f);
 
-  // probe forces to bodies as [n_o; f] about p0, in probe order
   SV fext[NB];
   for (int b = 0; b < NB; ++b) {
-    fext[b].a = mk(0.0f, 0.0f, 0.0f);
-    fext[b].l = mk(0.0f, 0.0f, 0.0f);
+    fext[b].a = zero3;
+    fext[b].l = zero3;
   }
+#if NDB > 0
+  // ---------------- dynamic OBBs (stage g), after both budgets: probes in
+  // the box frame against the box; the reaction, summed over the probes in
+  // probe order, acts on the box body (pallas_ant.py:500-586)
+  for (int k = 0; k < NPR; ++k) fz[k] = fz[k] > 0.0f ? fz[k] * s_up : fz[k];
+#define FZ_UP(k) fz[k]
+#pragma unroll 1
+  for (int j = 0; j < NDB; ++j) {
+    const int b2 = c_m.dbox_body[j];
+    const V3 half = ld3(c_m.dbox_half[j]);
+    Q4 bq = quat[b2];
+    if (!c_m.dbox_ident[j]) bq = qmul(quat[b2], ldq(c_m.dbox_quat[j]));
+    const V3 bp = vadd(pos[b2], qrot(quat[b2], ld3(c_m.dbox_pos[j])));
+    Q4 cbq = bq;
+    cbq.x = -bq.x;
+    cbq.y = -bq.y;
+    cbq.z = -bq.z;
+    const SV Vb = V[b2];
+    V3 rn = zero3, rf = zero3;  // reaction sums: torque about p0, force
+#pragma unroll 1
+    for (int k = 0; k < NPR; ++k) {
+      const V3 l = qrot(cbq, vsub(pwa[k], bp));
+      const float dx = l.x - clipp(l.x, -half.x, half.x);
+      const float dy = l.y - clipp(l.y, -half.y, half.y);
+      const float dz = l.z - clipp(l.z, -half.z, half.z);
+      const float d_out = sqrtf(dx * dx + dy * dy + dz * dz);
+      const bool outside = d_out > 1e-9f;
+      const float inv = 1.0f / (outside ? d_out : 1.0f);
+      const float fl[6] = {l.x + half.x, half.x - l.x, l.y + half.y,
+                           half.y - l.y, l.z + half.z, half.z - l.z};
+      float ni[3];
+      const float d_in = nearest_face(fl, ni);
+      const V3 n = qrot(bq, outside ? mk(dx * inv, dy * inv, dz * inv)
+                                    : mk(ni[0], ni[1], ni[2]));
+      const float dist = (outside ? d_out : -d_in) - c_m.probe_rad[k];
+      // relative velocity: probe minus the box body's point velocity
+      const V3 r = pr[k];
+      const V3 vbp = mk(Vb.l.x + Vb.a.y * r.z - Vb.a.z * r.y,
+                        Vb.l.y + Vb.a.z * r.x - Vb.a.x * r.z,
+                        Vb.l.z + Vb.a.x * r.y - Vb.a.y * r.x);
+      float f_n, pen;
+      const V3 g0 = penalty_force(dist, n, vsub(vva[k], vbp), c_m.probe_kn[k],
+                                  c_m.probe_cn[k], c_m.probe_fric[k], f_n,
+                                  pen);
+      const V3 g = vscale(g0, c_m.dbox_keep[j][k]);
+      fx[k] = fx[k] + g.x;
+      fy[k] = fy[k] + g.y;
+      fz[k] = fz[k] + g.z;
+      const V3 no = vcross(r, g);
+      rn = k == 0 ? no : vadd(rn, no);
+      rf = k == 0 ? g : vadd(rf, g);
+    }
+    fext[b2].a = vadd(fext[b2].a, vsub(zero3, rn));
+    fext[b2].l = vadd(fext[b2].l, vsub(zero3, rf));
+  }
+#else
+#define FZ_UP(k) (fz[k] > 0.0f ? fz[k] * s_up : fz[k])
+#endif
+
+  // probe forces to bodies as [n_o; f] about p0, in probe order
 #pragma unroll 1
   for (int k = 0; k < NPR; ++k) {
-    const float fzk = fz[k] > 0.0f ? fz[k] * s_up : fz[k];
     SV f;
-    f.l = mk(fx[k], fy[k], fzk);
+    f.l = mk(fx[k], fy[k], FZ_UP(k));
     f.a = vcross(pr[k], f.l);
     const int b = c_m.probe_body[k];
     fext[b] = sv_add(fext[b], f);
   }
+#undef FZ_UP
 
   // ---------------- bias forces (RNEA, qacc = 0)
+  SV a0;
+  a0.a = zero3;
+  a0.l = mk(0.0f - c_m.gravity[0], 0.0f - c_m.gravity[1],
+            0.0f - c_m.gravity[2]);
   SV A[NB];
-  A[0].a = mk(0.0f, 0.0f, 0.0f);
-  A[0].l = mk(0.0f - c_m.gravity[0], 0.0f - c_m.gravity[1],
-              0.0f - c_m.gravity[2]);
 #pragma unroll 1
-  for (int i = 1; i < NB; ++i) {
-    const int p = c_m.parent[i];
-    A[i] = sv_add(A[p], cross_motion(V[p], sv_scale(S[5 + i], u[5 + i])));
+  for (int i = 0; i < NB; ++i) {
+    const int p = c_m.parent[i], t = c_m.jnt_type[i], d = c_m.dofadr[i];
+    if (p < 0 || t == J_FREE)
+      A[i] = a0;
+    else if (one_dof(t))
+      A[i] = sv_add(A[p], cross_motion(V[p], sv_scale(S[d], u[d])));
+    else  // FIXED
+      A[i] = A[p];
   }
   SV fb[NB];
 #pragma unroll 1
@@ -467,6 +620,7 @@ __device__ void substep(float q[NQ], float qd[NV], const float ctrl[NU]) {
 #pragma unroll 1
   for (int i = NB - 1; i > 0; --i) {
     const int p = c_m.parent[i];
+    if (p < 0) continue;
     fb[p] = sv_add(fb[p], fb[i]);
   }
   float rhs[NV];
@@ -476,10 +630,31 @@ __device__ void substep(float q[NQ], float qd[NV], const float ctrl[NU]) {
     rhs[d] = vdot(S[d].a, f.a) + vdot(S[d].l, f.l);  // tau_bias for now
   }
 
+#if HAS_SERVO
+  // ---------------- gravity compensation of the servos: the zero-velocity,
+  // no-contact RNEA, i.e. subtree sums of I6 a0 (pallas_ant.py:664-678);
+  // fb's storage is reused, RNEA is done
+#pragma unroll 1
+  for (int i = 0; i < NB; ++i) fb[i] = i6vec(I6[i], a0);
+#pragma unroll 1
+  for (int i = NB - 1; i > 0; --i) {
+    const int p = c_m.parent[i];
+    if (p < 0) continue;
+    fb[p] = sv_add(fb[p], fb[i]);
+  }
+  float tau_grav[NV];
+#pragma unroll 1
+  for (int d = 0; d < NV; ++d) {
+    const SV f = fb[dof_body(d)];
+    tau_grav[d] = vdot(S[d].a, f.a) + vdot(S[d].l, f.l);
+  }
+#endif
+
   // ---------------- CRBA: composite inertias in place of I6 (RNEA is done)
 #pragma unroll 1
   for (int i = NB - 1; i > 0; --i) {
     const int p = c_m.parent[i];
+    if (p < 0) continue;
     for (int r = 0; r < 6; ++r)
       for (int k = 0; k < 6; ++k) I6[p][r][k] = I6[p][r][k] + I6[i][r][k];
   }
@@ -503,12 +678,21 @@ __device__ void substep(float q[NQ], float qd[NV], const float ctrl[NU]) {
   for (int d = 0; d < NV; ++d) tau[d] = 0.0f - c_m.damping[d] * u[d];
   for (int a = 0; a < NU; ++a) {
     const int d = c_m.act_dof[a];
+#if HAS_SERVO
+    if (c_m.act_type[a] == 1) {  // PD position servo, force-limited
+      const float f = c_m.act_kp[a] * (ctrl[a] - q[c_m.act_qadr[a]]) -
+                      c_m.act_kd[a] * u[d] + tau_grav[d];
+      tau[d] = tau[d] + clipp(f, -c_m.act_force[a], c_m.act_force[a]);
+      continue;
+    }
+#endif
     tau[d] = tau[d] + c_m.act_gear[a] * clipp(ctrl[a], -1.0f, 1.0f);
   }
-  for (int i = 1; i < NB; ++i) {
-    const int d = 5 + i;
+  for (int i = 0; i < NB; ++i) {
+    if (!one_dof(c_m.jnt_type[i])) continue;
+    const int d = c_m.dofadr[i];
     if (!c_m.lim_on[d]) continue;
-    const float qi = q[6 + i];
+    const float qi = q[c_m.qposadr[i]];
     const float over = maxp(qi - c_m.lim_hi[d], 0.0f);
     const float under = maxp(c_m.lim_lo[d] - qi, 0.0f);
     const bool active = (over > 0.0f) || (under > 0.0f);
@@ -546,65 +730,63 @@ __device__ void substep(float q[NQ], float qd[NV], const float ctrl[NU]) {
   const float vmax = c_m.vmax;
   float un[NV];
   for (int d = 0; d < NV; ++d) un[d] = clipp(u[d] + dt * ud[d], -vmax, vmax);
-  const V3 w_new = mk(un[3], un[4], un[5]);
-  V3 vp = vadd(mk(un[0], un[1], un[2]), vcross(w_new, posr[0]));
-  vp = mk(clipp(vp.x, -vmax, vmax), clipp(vp.y, -vmax, vmax),
-          clipp(vp.z, -vmax, vmax));
   float qn_[NQ];
-  qn_[0] = q[0] + dt * vp.x;
-  qn_[1] = q[1] + dt * vp.y;
-  qn_[2] = q[2] + dt * vp.z;
-  {
-    const float angle =
-        sqrtf(w_new.x * w_new.x + w_new.y * w_new.y + w_new.z * w_new.z);
-    const float safe = angle > 1e-9f ? angle : 1.0f;
-    const float axx = w_new.x / safe, axy = w_new.y / safe,
-                axz = w_new.z / safe;
-    const float half = angle * dt * 0.5f;
-    const float sh = sinf(half);
-    Q4 dq;
-    dq.w = cosf(half);
-    dq.x = axx * sh;
-    dq.y = axy * sh;
-    dq.z = axz * sh;
-    Q4 q0;
-    q0.w = q[3];
-    q0.x = q[4];
-    q0.y = q[5];
-    q0.z = q[6];
-    const Q4 qn = qmul(dq, q0);
-    const float norm =
-        sqrtf(qn.w * qn.w + qn.x * qn.x + qn.y * qn.y + qn.z * qn.z);
-    qn_[3] = qn.w / norm;
-    qn_[4] = qn.x / norm;
-    qn_[5] = qn.y / norm;
-    qn_[6] = qn.z / norm;
-  }
-  qd[0] = vp.x;
-  qd[1] = vp.y;
-  qd[2] = vp.z;
-  for (int d = 3; d < 6; ++d) qd[d] = un[d];
-  for (int i = 1; i < NB; ++i) {
-    const int qa = 6 + i, d = 5 + i;
-    float qv = q[qa] + dt * un[d];
-    float qdv = un[d];
-    if (c_m.lim_on[d]) {
-      const float lo = c_m.lim_lo[d], hi = c_m.lim_hi[d];
-      qdv = qv < lo ? maxp(qdv, 0.0f) : qdv;
-      qdv = qv > hi ? minp(qdv, 0.0f) : qdv;
-      qv = clipp(qv, lo, hi);
+  for (int k = 0; k < NQ; ++k) qn_[k] = q[k];
+  for (int d = 0; d < NV; ++d) qd[d] = un[d];
+#pragma unroll 1
+  for (int i = 0; i < NB; ++i) {
+    const int t = c_m.jnt_type[i], qa = c_m.qposadr[i], d = c_m.dofadr[i];
+    if (t == J_FREE) {
+      const V3 w_new = mk(un[d + 3], un[d + 4], un[d + 5]);
+      V3 vp = vadd(mk(un[d], un[d + 1], un[d + 2]), vcross(w_new, posr[i]));
+      vp = mk(clipp(vp.x, -vmax, vmax), clipp(vp.y, -vmax, vmax),
+              clipp(vp.z, -vmax, vmax));
+      qn_[qa] = q[qa] + dt * vp.x;
+      qn_[qa + 1] = q[qa + 1] + dt * vp.y;
+      qn_[qa + 2] = q[qa + 2] + dt * vp.z;
+      const float angle =
+          sqrtf(w_new.x * w_new.x + w_new.y * w_new.y + w_new.z * w_new.z);
+      const float safe = angle > 1e-9f ? angle : 1.0f;
+      const float axx = w_new.x / safe, axy = w_new.y / safe,
+                  axz = w_new.z / safe;
+      const float half = angle * dt * 0.5f;
+      const float sh = sinf(half);
+      Q4 dq;
+      dq.w = cosf(half);
+      dq.x = axx * sh;
+      dq.y = axy * sh;
+      dq.z = axz * sh;
+      const Q4 qn = qmul(dq, ldq(q + qa + 3));
+      const float norm =
+          sqrtf(qn.w * qn.w + qn.x * qn.x + qn.y * qn.y + qn.z * qn.z);
+      qn_[qa + 3] = qn.w / norm;
+      qn_[qa + 4] = qn.x / norm;
+      qn_[qa + 5] = qn.y / norm;
+      qn_[qa + 6] = qn.z / norm;
+      qd[d] = vp.x;
+      qd[d + 1] = vp.y;
+      qd[d + 2] = vp.z;
+    } else if (one_dof(t)) {
+      float qv = q[qa] + dt * un[d];
+      float qdv = un[d];
+      if (c_m.lim_on[d]) {  // inelastic limit stops
+        const float lo = c_m.lim_lo[d], hi = c_m.lim_hi[d];
+        qdv = qv < lo ? maxp(qdv, 0.0f) : qdv;
+        qdv = qv > hi ? minp(qdv, 0.0f) : qdv;
+        qv = clipp(qv, lo, hi);
+      }
+      qn_[qa] = qv;
+      qd[d] = qdv;
     }
-    qn_[qa] = qv;
-    qd[d] = qdv;
   }
   for (int k = 0; k < NQ; ++k) q[k] = qn_[k];
 }
 
-__global__ void substep_ant_kernel(const float* __restrict__ qpos,
-                                   const float* __restrict__ qvel,
-                                   const float* __restrict__ ctrl,
-                                   float* __restrict__ qpos_out,
-                                   float* __restrict__ qvel_out, int B) {
+__global__ void substep_kernel(const float* __restrict__ qpos,
+                               const float* __restrict__ qvel,
+                               const float* __restrict__ ctrl,
+                               float* __restrict__ qpos_out,
+                               float* __restrict__ qvel_out, int B) {
   const int env = blockIdx.x * blockDim.x + threadIdx.x;
   if (env >= B) return;
   float q[NQ], qd[NV], ct[NU];
@@ -620,25 +802,25 @@ __global__ void substep_ant_kernel(const float* __restrict__ qpos,
 // ---------------------------------------------------------------------------
 // plain C interface, bound with ctypes in physics/substep_cuda.py
 
-extern "C" int substep_ant_model_bytes() { return (int)sizeof(AntModel); }
+extern "C" int substep_model_bytes() { return (int)sizeof(SubstepModel); }
 
-extern "C" int substep_ant_set_model(const void* host_model) {
-  return (int)cudaMemcpyToSymbol(c_m, host_model, sizeof(AntModel));
+extern "C" int substep_set_model(const void* host_model) {
+  return (int)cudaMemcpyToSymbol(c_m, host_model, sizeof(SubstepModel));
 }
 
 // 32 threads a block: at the main path's 4096 envs that is 128 blocks, one
 // warp on nearly every one of the H100's 132 SMs.
-extern "C" int substep_ant_launch(const float* qpos, const float* qvel,
-                                  const float* ctrl, float* qpos_out,
-                                  float* qvel_out, int B, void* stream) {
+extern "C" int substep_launch(const float* qpos, const float* qvel,
+                              const float* ctrl, float* qpos_out,
+                              float* qvel_out, int B, void* stream) {
   if (B <= 0) return 0;
   const int threads = 32;
   const int blocks = (B + threads - 1) / threads;
-  substep_ant_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  substep_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       qpos, qvel, ctrl, qpos_out, qvel_out, B);
   return (int)cudaGetLastError();
 }
 
-extern "C" const char* substep_ant_error_string(int code) {
+extern "C" const char* substep_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

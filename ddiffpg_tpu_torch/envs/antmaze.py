@@ -13,7 +13,8 @@ Counterpart of `ddiffpg_tpu/envs/antmaze.py` (`_init_state`, `reset`,
 
 Physics: on a CUDA device every control step is one launch of the CUDA
 substep kernel (`physics/substep_cuda.py`), for any batch size; on the CPU
-it is the plain PyTorch version (`physics/substep.py`). The choice follows
+it is the plain PyTorch version (`physics/substep.py`). The env is built on
+the card unless the caller passes `device="cpu"`, and the choice follows
 the device of the state tensors. Both use the maze's wall AABBs, like the
 Pallas kernel every archived TPU run trained on.
 """
@@ -23,24 +24,25 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ddiffpg_tpu.physics import maze
 from ddiffpg_tpu_torch.envs.base import EnvState
 from ddiffpg_tpu_torch.physics import ant as ant_model
-from ddiffpg_tpu_torch.physics.substep import AntConstants, substep_reference
+from ddiffpg_tpu_torch.physics import maze
+from ddiffpg_tpu_torch.physics.substep import (SubstepConstants,
+                                               substep_reference)
 
 
 class AntMazeEnv:
     def __init__(self, name: str = "antmaze-v1", reward_type: str = "sparse",
                  random_init: bool = False, maze_size_scaling: float = 4.0,
                  dt: float = 0.01, n_substeps: int = 10,
-                 device: str | torch.device = "cpu", seed: int = 0):
+                 device: str | torch.device = "cuda", seed: int = 0):
         self.name = name
         self.maze_map = maze.MAZES[name]
         self.boxes = maze.compile_boxes(self.maze_map, maze_size_scaling)
         sdf = maze.compile_sdf(self.maze_map, maze_size_scaling)
         self.model = ant_model.build_ant(static_boxes=self.boxes, dt=dt,
                                          n_substeps=n_substeps, **sdf)
-        self.consts = AntConstants.from_model(self.model)
+        self.consts = SubstepConstants.from_model(self.model)
         self.device = torch.device(device)
         goals = maze.GOALS[name]
         self.goal_xy = torch.tensor([g[0] for g in goals], dtype=torch.float32,

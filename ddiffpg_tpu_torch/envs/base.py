@@ -26,6 +26,11 @@ class VecEnv:
 
     `step` auto-resets finished envs while still returning the true
     terminal observation of the finished transition.
+
+    `xy` / `reset_xy` is the env's random reset draw for the whole batch,
+    given instead of drawn from the env's generator (tests feed the JAX
+    package's draws): the ant's torso xy [B, 2], or the Panda arm's joint
+    noise [B, 7].
     """
 
     def __init__(self, env, num_envs: int):

@@ -1,9 +1,9 @@
 """Rigid-body physics of the port.
 
-  types.py, builder.py, ant.py — numpy scene builders (jax-free copies)
-  substep.py                   — model check, constants, plain substep
-  substep_cuda.py              — build/load/launch of csrc/substep_ant.cu
-
-The maze tables are reused from `ddiffpg_tpu.physics.maze`, which imports
-only numpy.
+  types.py, builder.py          — numpy scene builders (jax-free copies)
+  ant.py, panda.py, maze.py     — the ant, the Panda scenes, the maze tables
+  quat.py, engine.py            — quaternions and batched kinematics (FK,
+                                  subspaces, body velocities)
+  substep.py                    — model check, constants, plain substep
+  substep_cuda.py               — build/load/launch of csrc/substep.cu
 """

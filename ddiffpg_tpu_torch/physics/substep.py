@@ -1,23 +1,24 @@
-"""The ant substep in plain PyTorch, the model check, and the constants that
-the CUDA kernel bakes in.
+"""The rigid-body substep in plain PyTorch, the model check, and the
+constants that the CUDA kernel bakes in.
 
 Counterpart of `ddiffpg_tpu/physics/pallas_ant.py:make_substep_kernel`
 (the one TPU kernel of the JAX package). That Pallas kernel runs
 `n_substeps` rigid-body substeps per env in one launch; on an NVIDIA card
-the same function is `csrc/substep_ant.cu`, loaded by `substep_cuda.py`.
+the same function is `csrc/substep.cu`, loaded by `substep_cuda.py`.
 This module holds:
 
-* `check_ant_class` — the port covers the ant's model class only: one FREE
-  root whose children are HINGE joints anchored at the body origin, direct
-  torque motors, sphere/capsule probes against the ground plane and the
-  static AABBs. SLIDE/FIXED joints, position servos and dynamic boxes (the
-  Panda branches) raise `NotImplementedError`; nothing falls back.
-* `AntConstants` — every model constant as the float32 value the Pallas
-  trace would bake in (Python doubles rounded once to f32), shared by this
-  module and the CUDA kernel's `__constant__` block.
+* `check_supported` — the Pallas kernel's model class
+  (`pallas_ant.py:_check_supported`): FREE joints only at roots; HINGE,
+  SLIDE and FIXED joints anywhere, several roots allowed; joints anchored
+  at the body origin; at most 32 bodies; sphere/capsule probes, dynamic
+  BOX geoms, torque motors and PD position servos. Anything else raises
+  `NotImplementedError`; nothing falls back.
+* `SubstepConstants` — every model constant as the float32 value the
+  Pallas trace would bake in (Python doubles rounded once to f32), shared
+  by this module and the CUDA kernel's `__constant__` block.
 * `substep_reference` — the substep on `[B]` row tensors in the kernel's
-  stage and summation order. It is the oracle of the kernel's checks and the
-  physics of an env that lives on the CPU.
+  stage and summation order. It is the oracle of the kernel's checks and
+  the physics of an env that lives on the CPU.
 
 No gradient flows through the physics (the JAX package never
 differentiates it), so neither version has a backward.
@@ -31,50 +32,49 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from ddiffpg_tpu_torch.physics.types import (BOX, CAPSULE, FREE, HINGE,
-                                             SPHERE, Model)
+from ddiffpg_tpu_torch.physics.types import (BOX, CAPSULE, FIXED, FREE,
+                                             HINGE, SLIDE, SPHERE, Model)
 
 # ---------------------------------------------------------------------------
 # model check and constants
 
+ONE_DOF = (HINGE, SLIDE)
+NDOF = {FREE: 6, HINGE: 1, SLIDE: 1, FIXED: 0}
 
-def check_ant_class(m: Model) -> None:
-    """Raise NotImplementedError unless `m` is in the ant's model class."""
-    if int(m.jnt_type[0]) != FREE or int(m.parent[0]) >= 0:
-        raise NotImplementedError("substep port: body 0 must be a FREE root")
-    for i in range(1, m.nb):
+
+def check_supported(m: Model) -> None:
+    """Raise NotImplementedError unless `m` is in the kernel's model class."""
+    for i in range(m.nb):
         t = int(m.jnt_type[i])
-        if t != HINGE:
-            raise NotImplementedError(
-                f"substep port: joint type {t} on body {i} (SLIDE/FIXED are "
-                "the Panda branches, still to be ported)")
-        if int(m.parent[i]) < 0:
-            raise NotImplementedError("substep port: one FREE root only")
-        if int(m.jnt_qposadr[i]) != 6 + i or int(m.jnt_dofadr[i]) != 5 + i:
-            raise NotImplementedError("substep port: unexpected qpos layout")
+        if t not in NDOF:
+            raise NotImplementedError(f"substep: joint type {t} on body {i}")
+        if t == FREE and int(m.parent[i]) >= 0:
+            raise NotImplementedError("substep: FREE joints only at roots")
     if not np.allclose(m.jnt_pos, 0.0):
-        raise NotImplementedError("substep port: joints must anchor at the "
-                                  "body origin")
-    if np.any(np.asarray(m.act_type) != 0):
-        raise NotImplementedError("substep port: position servos (act_type "
-                                  "1, Panda) are still to be ported")
+        raise NotImplementedError("substep: joints must anchor at the body "
+                                  "origin")
+    if m.nb > 32:
+        raise NotImplementedError("substep: at most 32 bodies")
+    for a in np.asarray(m.act_type):
+        if int(a) not in (0, 1):
+            raise NotImplementedError(f"substep: actuator type {int(a)}")
     for gi in range(m.ng):
         t = int(m.geom_type[gi])
-        if t == BOX:
-            raise NotImplementedError("substep port: dynamic boxes (Panda) "
-                                      "are still to be ported")
-        if t not in (SPHERE, CAPSULE):
-            raise NotImplementedError(f"substep port: geom type {t}")
-    if m.nb > 32:
-        raise NotImplementedError("substep port: at most 32 bodies")
+        if t not in (SPHERE, CAPSULE, BOX):
+            raise NotImplementedError(f"substep: geom type {t}")
 
 
 def _f32(x) -> float:
     return float(np.float32(x))
 
 
+def _is_ident(q) -> bool:
+    return bool(abs(q[0] - 1.0) < 1e-12
+                and abs(q[1]) + abs(q[2]) + abs(q[3]) < 1e-12)
+
+
 @dataclass(frozen=True)
-class AntConstants:
+class SubstepConstants:
     """Model constants as float32 values, in the layout of the kernel."""
     nb: int
     nv: int
@@ -82,8 +82,13 @@ class AntConstants:
     nu: int
     npr: int
     nsb: int
+    ndb: int                        # dynamic (body-attached) boxes
     n_substeps: int
     parent: Tuple[int, ...]
+    jnt_type: Tuple[int, ...]       # [nb]
+    qposadr: Tuple[int, ...]        # [nb]
+    dofadr: Tuple[int, ...]         # [nb]
+    dof_body: Tuple[int, ...]       # [nv]
     ident_quat: Tuple[bool, ...]
     anc_mask: Tuple[int, ...]       # bit j: body j lies on the path root..i
     axis: np.ndarray                # [nb, 3]
@@ -99,6 +104,11 @@ class AntConstants:
     lim_on: Tuple[bool, ...]        # [nv] a finite limit exists
     act_dof: Tuple[int, ...]        # [nu]
     act_gear: np.ndarray            # [nu]
+    act_type: Tuple[int, ...]       # [nu] 0 torque motor, 1 PD servo
+    act_kp: np.ndarray              # [nu]
+    act_kd: np.ndarray              # [nu]
+    act_force: np.ndarray           # [nu] servo force limit
+    act_qadr: Tuple[int, ...]       # [nu] qpos index of the servo's joint
     probe_body: Tuple[int, ...]     # [npr]
     probe_off: np.ndarray           # [npr, 3]
     probe_rad: np.ndarray           # [npr]
@@ -107,6 +117,14 @@ class AntConstants:
     probe_cn: np.ndarray            # [npr]
     box_min: np.ndarray             # [nsb, 3]
     box_max: np.ndarray             # [nsb, 3]
+    # dynamic boxes (pallas_ant.py:176-184). Their contacts use the probe's
+    # friction, as the Pallas kernel does, so the box's own is not kept.
+    dbox_body: Tuple[int, ...]      # [ndb]
+    dbox_ident: Tuple[bool, ...]    # [ndb] local quat has zero vector part
+    dbox_pos: np.ndarray            # [ndb, 3] in the body frame
+    dbox_quat: np.ndarray           # [ndb, 4] in the body frame
+    dbox_half: np.ndarray           # [ndb, 3] half extents
+    dbox_keep: np.ndarray           # [ndb, npr] 0 for the box body's probes
     gravity: Tuple[float, float, float]
     dt: float
     inv_nb: float
@@ -122,9 +140,14 @@ class AntConstants:
     m_total: float
     inv_m_total: float
 
+    @property
+    def has_servo(self) -> bool:
+        return 1 in self.act_type
+
     @staticmethod
-    def from_model(m: Model, n_substeps: int | None = None) -> "AntConstants":
-        check_ant_class(m)
+    def from_model(m: Model, n_substeps: int | None = None
+                   ) -> "SubstepConstants":
+        check_supported(m)
         nb = m.nb
         f32 = lambda a: np.asarray(a, np.float32)
         parent = tuple(int(p) for p in m.parent)
@@ -136,18 +159,20 @@ class AntConstants:
                 b = parent[b]
             anc.append(mask)
         bq = np.asarray(m.body_quat, np.float64)
-        ident = tuple(bool(abs(q[0] - 1.0) < 1e-12
-                           and abs(q[1]) + abs(q[2]) + abs(q[3]) < 1e-12)
-                      for q in bq)
         omega_c = 1.0 / float(m.contact_timeconst)
         zeta = float(m.contact_dampratio)
         dt = float(m.dt)
         # probes: sphere centres and both capsule end caps, geoms in order
         # (pallas_ant.py:194-212); offsets in f64, then rounded to f32
         pb, poff, prad, pfr, pkn, pcn = [], [], [], [], [], []
+        dboxes = []
         for gi in range(m.ng):
             b = int(m.geom_body[gi])
             gp = [float(x) for x in m.geom_pos[gi]]
+            if int(m.geom_type[gi]) == BOX:
+                dboxes.append((b, gp, [float(x) for x in m.geom_quat[gi]],
+                               [float(x) for x in m.geom_size[gi]]))
+                continue
             r = float(m.geom_size[gi][0])
             fr = float(m.geom_friction[gi])
             offs = []
@@ -174,11 +199,20 @@ class AntConstants:
         inv_vreb = 1.0 / float(m.contact_maxrebound)
         vtol = float(m.friction_vel_tol)
         lo, hi = f32(m.dof_limit_lo), f32(m.dof_limit_hi)
-        return AntConstants(
+        qposadr = tuple(int(x) for x in m.jnt_qposadr)
+        dof_body = tuple(int(x) for x in m.dof_body)
+        keep = np.ones((len(dboxes), len(pb)), np.float32)
+        for j, (b2, _, _, _) in enumerate(dboxes):
+            keep[j, [k for k, b in enumerate(pb) if b == b2]] = 0.0
+        return SubstepConstants(
             nb=nb, nv=m.nv, nq=m.nq, nu=m.nu, npr=len(pb), nsb=m.nsb,
+            ndb=len(dboxes),
             n_substeps=int(n_substeps if n_substeps is not None
                            else m.n_substeps),
-            parent=parent, ident_quat=ident, anc_mask=tuple(anc),
+            parent=parent, jnt_type=tuple(int(t) for t in m.jnt_type),
+            qposadr=qposadr, dofadr=tuple(int(x) for x in m.jnt_dofadr),
+            dof_body=dof_body,
+            ident_quat=tuple(_is_ident(q) for q in bq), anc_mask=tuple(anc),
             axis=f32(m.jnt_axis), body_pos=f32(m.body_pos),
             body_quat=f32(m.body_quat), mass=f32(m.mass), com=f32(m.com),
             inertia=f32(m.inertia), damping=f32(m.dof_damping),
@@ -187,11 +221,22 @@ class AntConstants:
                          for a, b_ in zip(lo, hi)),
             act_dof=tuple(int(d) for d in m.act_dof),
             act_gear=f32(m.act_gear),
+            act_type=tuple(int(t) for t in m.act_type),
+            act_kp=f32(m.act_kp), act_kd=f32(m.act_kd),
+            act_force=f32(m.act_force),
+            act_qadr=tuple(qposadr[dof_body[int(d)]] for d in m.act_dof),
             probe_body=tuple(pb), probe_off=f32(poff).reshape(-1, 3),
             probe_rad=f32(prad), probe_fric=f32(pfr), probe_kn=f32(pkn),
             probe_cn=f32(pcn),
             box_min=f32(m.static_box_min).reshape(-1, 3),
             box_max=f32(m.static_box_max).reshape(-1, 3),
+            dbox_body=tuple(b for b, _, _, _ in dboxes),
+            dbox_ident=tuple(all(abs(x) < 1e-12 for x in q[1:])
+                             for _, _, q, _ in dboxes),
+            dbox_pos=f32([p for _, p, _, _ in dboxes]).reshape(-1, 3),
+            dbox_quat=f32([q for _, _, q, _ in dboxes]).reshape(-1, 4),
+            dbox_half=f32([h for _, _, _, h in dboxes]).reshape(-1, 3),
+            dbox_keep=keep,
             gravity=tuple(_f32(g) for g in gravity), dt=_f32(dt),
             inv_nb=_f32(1.0 / nb),
             capk_scale=_f32(1.0 / (omega_c * omega_c * dt)),
@@ -307,6 +352,27 @@ def _relu(x):
     return torch.clamp(x, min=0.0)
 
 
+def _nearest_face(fl, like):
+    """Outward normal of the nearest face (first in face order on ties) of
+    a box, from the six face distances `fl` (-x, +x, -y, +y, -z, +z)."""
+    d_in = fl[0]
+    for f_ in fl[1:]:
+        d_in = torch.minimum(d_in, f_)
+    normals = [(-1.0, 0.0, 0.0), (1.0, 0.0, 0.0), (0.0, -1.0, 0.0),
+               (0.0, 1.0, 0.0), (0.0, 0.0, -1.0), (0.0, 0.0, 1.0)]
+    nxi = torch.zeros_like(like)
+    nyi = torch.zeros_like(like)
+    nzi = torch.zeros_like(like)
+    chosen = torch.zeros_like(like, dtype=torch.bool)
+    for f_, (a1, a2, a3) in zip(fl, normals):
+        hit = (f_ <= d_in) & ~chosen
+        nxi = torch.where(hit, a1, nxi)
+        nyi = torch.where(hit, a2, nyi)
+        nzi = torch.where(hit, a3, nzi)
+        chosen = chosen | hit
+    return d_in, (nxi, nyi, nzi)
+
+
 # ---------------------------------------------------------------------------
 # the substep
 
@@ -315,30 +381,48 @@ def _tup(a) -> tuple:
     return tuple(float(x) for x in a)
 
 
-def _substep(c: AntConstants, q: List[torch.Tensor], qd: List[torch.Tensor],
-             ctrl: List[torch.Tensor], pk: dict):
+def _substep(c: SubstepConstants, q: List[torch.Tensor],
+             qd: List[torch.Tensor], ctrl: List[torch.Tensor], pk: dict):
     nb, nv = c.nb, c.nv
     dt = c.dt
     zero = torch.zeros_like(q[0])
     one = zero + 1.0
     z3 = (zero, zero, zero)
+    jt, qadr, dadr = c.jnt_type, c.qposadr, c.dofadr
+    frees = [i for i in range(nb) if jt[i] == FREE]
+    one_dof = [i for i in range(nb) if jt[i] in ONE_DOF]
 
-    # ---------------- FK (FREE root, HINGE children)
+    # ---------------- FK (FREE roots, HINGE, SLIDE, FIXED)
     pos: list = [None] * nb
     quat: list = [None] * nb
-    pos[0] = (q[0], q[1], q[2])
-    quat[0] = (q[3], q[4], q[5], q[6])
-    for i in range(1, nb):
+    for i in range(nb):
+        qa = qadr[i]
+        if jt[i] == FREE:
+            pos[i] = (q[qa], q[qa + 1], q[qa + 2])
+            quat[i] = (q[qa + 3], q[qa + 4], q[qa + 5], q[qa + 6])
+            continue
         p = c.parent[i]
-        p0 = vadd(pos[p], qrot(quat[p], _tup(c.body_pos[i])))
-        q0 = quat[p] if c.ident_quat[i] else qmul(quat[p],
-                                                  _tup(c.body_quat[i]))
-        half = q[6 + i] * 0.5
-        s = torch.sin(half)
-        ax = _tup(c.axis[i])
-        qj = (torch.cos(half), ax[0] * s, ax[1] * s, ax[2] * s)
-        quat[i] = qmul(q0, qj)
-        pos[i] = p0
+        if p >= 0:
+            p0 = vadd(pos[p], qrot(quat[p], _tup(c.body_pos[i])))
+            q0 = quat[p] if c.ident_quat[i] else qmul(quat[p],
+                                                      _tup(c.body_quat[i]))
+        else:   # a non-FREE root keeps its constant frame
+            p0 = tuple(zero + x for x in _tup(c.body_pos[i]))
+            q0 = tuple(zero + x for x in _tup(c.body_quat[i]))
+        if jt[i] == HINGE:
+            half = q[qa] * 0.5
+            s = torch.sin(half)
+            ax = _tup(c.axis[i])
+            qj = (torch.cos(half), ax[0] * s, ax[1] * s, ax[2] * s)
+            quat[i] = qmul(q0, qj)
+            pos[i] = p0
+        elif jt[i] == SLIDE:
+            ax_w = qrot(q0, _tup(c.axis[i]))
+            pos[i] = vadd(p0, vscale(ax_w, q[qa]))
+            quat[i] = q0
+        else:   # FIXED
+            pos[i] = p0
+            quat[i] = q0
 
     # ---------------- robot-centred frame about the body centroid p0
     p0 = tuple(_sum([pos[i][k] for i in range(nb)]) * c.inv_nb
@@ -347,25 +431,37 @@ def _substep(c: AntConstants, q: List[torch.Tensor], qd: List[torch.Tensor],
 
     # ---------------- motion subspaces
     S: list = [None] * nv
-    for k in range(3):
-        e = [zero, zero, zero]
-        e[k] = one
-        S[k] = (z3, tuple(e))
-        S[3 + k] = (tuple(e), z3)
-    for i in range(1, nb):
+    for i in frees:
+        d = dadr[i]
+        for k in range(3):
+            e = [zero, zero, zero]
+            e[k] = one
+            S[d + k] = (z3, tuple(e))
+            S[d + 3 + k] = (tuple(e), z3)
+    for i in one_dof:
         w = qrot(quat[i], _tup(c.axis[i]))
-        S[5 + i] = (w, vcross(posr[i], w))
+        S[dadr[i]] = (w, vcross(posr[i], w)) if jt[i] == HINGE else (z3, w)
 
-    # ---------------- qvel -> u (free joint: (v_origin, omega))
+    # ---------------- qvel -> u (free joints: (v_origin, omega))
     u = list(qd)
-    wroot = (qd[3], qd[4], qd[5])
-    u[0], u[1], u[2] = vsub((qd[0], qd[1], qd[2]), vcross(wroot, posr[0]))
+    for i in frees:
+        d = dadr[i]
+        wroot = (qd[d + 3], qd[d + 4], qd[d + 5])
+        u[d], u[d + 1], u[d + 2] = vsub((qd[d], qd[d + 1], qd[d + 2]),
+                                        vcross(wroot, posr[i]))
 
     # ---------------- body spatial velocities
     V: list = [None] * nb
-    V[0] = ((u[3], u[4], u[5]), (u[0], u[1], u[2]))
-    for i in range(1, nb):
-        V[i] = sv_add(V[c.parent[i]], sv_scale(S[5 + i], u[5 + i]))
+    for i in range(nb):
+        p = c.parent[i]
+        base = V[p] if p >= 0 else (z3, z3)
+        if jt[i] == FREE:
+            d = dadr[i]
+            V[i] = ((u[d + 3], u[d + 4], u[d + 5]), (u[d], u[d + 1], u[d + 2]))
+        elif jt[i] in ONE_DOF:
+            V[i] = sv_add(base, sv_scale(S[dadr[i]], u[dadr[i]]))
+        else:   # FIXED: the parent's motion
+            V[i] = base
 
     # ---------------- 6x6 spatial inertias about p0
     I6: list = [None] * nb
@@ -407,28 +503,32 @@ def _substep(c: AntConstants, q: List[torch.Tensor], qd: List[torch.Tensor],
     rad, fric, k_n, c_n = pk["rad"], pk["fric"], pk["kn"], pk["cn"]
     cap_k = k_n * c.capk_scale
 
-    def contact_force(dist, nx, ny, nz):
+    def normal_force(dist, v_n):
         pen = _relu(-dist)
-        v_n = vx * nx + vy * ny + vz * nz
         f_n = _relu(k_n * pen - c_n * v_n)
         f_n = torch.where(pen > 0, f_n, 0.0)
         # separation gate (strictly dissipative impacts) and impulse cap
         f_n = f_n * _clip(1.0 - v_n * c.inv_vreb, 0.0, 1.0)
-        f_n = torch.minimum(f_n, _relu(cap_k * (c.vreb - v_n)))
-        tx = vx - v_n * nx
-        ty = vy - v_n * ny
-        tz = vz - v_n * nz
+        return pen, torch.minimum(f_n, _relu(cap_k * (c.vreb - v_n)))
+
+    def friction(f_n, rvx, rvy, rvz, v_n, nx, ny, nz):
+        tx = rvx - v_n * nx
+        ty = rvy - v_n * ny
+        tz = rvz - v_n * nz
         vt = torch.sqrt(tx * tx + ty * ty + tz * tz + c.vtol_eps)
         scale = torch.clamp(vt / c.vtol, max=1.0)
         ft = -fric * f_n * scale / vt
+        return f_n * nx + ft * tx, f_n * ny + ft * ty, f_n * nz + ft * tz
+
+    def contact_force(dist, nx, ny, nz):
+        v_n = vx * nx + vy * ny + vz * nz
+        pen, f_n = normal_force(dist, v_n)
+        gx, gy, gz = friction(f_n, vx, vy, vz, v_n, nx, ny, nz)
         v_cn = vbx * nx + vby * ny + vbz * nz
         # 1e9 sentinel for probes not in contact (round-3 catapult fix)
-        return (f_n * nx + ft * tx, f_n * ny + ft * ty, f_n * nz + ft * tz,
-                f_n, torch.where(pen > 0, v_cn, 1e9))
+        return gx, gy, gz, f_n, torch.where(pen > 0, v_cn, 1e9)
 
     fx, fy, fz, imp_pt, vmin_pt = contact_force(pz - rad, 0.0, 0.0, 1.0)
-    normals = [(-1.0, 0.0, 0.0), (1.0, 0.0, 0.0), (0.0, -1.0, 0.0),
-               (0.0, 1.0, 0.0), (0.0, 0.0, -1.0), (0.0, 0.0, 1.0)]
     for j in range(c.nsb):
         bmin, bmax = _tup(c.box_min[j]), _tup(c.box_max[j])
         dx = px - _clip(px, bmin[0], bmax[0])
@@ -437,21 +537,9 @@ def _substep(c: AntConstants, q: List[torch.Tensor], qd: List[torch.Tensor],
         d_out = torch.sqrt(dx * dx + dy * dy + dz * dz)
         outside = d_out > 1e-9
         inv = 1.0 / torch.where(outside, d_out, 1.0)
-        fl = [px - bmin[0], bmax[0] - px, py - bmin[1], bmax[1] - py,
-              pz - bmin[2], bmax[2] - pz]
-        d_in = fl[0]
-        for f_ in fl[1:]:
-            d_in = torch.minimum(d_in, f_)
-        nxi = torch.zeros_like(px)
-        nyi = torch.zeros_like(px)
-        nzi = torch.zeros_like(px)
-        chosen = torch.zeros_like(px, dtype=torch.bool)
-        for f_, (a1, a2, a3) in zip(fl, normals):
-            hit = (f_ <= d_in) & ~chosen
-            nxi = torch.where(hit, a1, nxi)
-            nyi = torch.where(hit, a2, nyi)
-            nzi = torch.where(hit, a3, nzi)
-            chosen = chosen | hit
+        d_in, (nxi, nyi, nzi) = _nearest_face(
+            [px - bmin[0], bmax[0] - px, py - bmin[1], bmax[1] - py,
+             pz - bmin[2], bmax[2] - pz], px)
         nx = torch.where(outside, dx * inv, nxi)
         ny = torch.where(outside, dy * inv, nyi)
         nz = torch.where(outside, dz * inv, nzi)
@@ -500,8 +588,52 @@ def _substep(c: AntConstants, q: List[torch.Tensor], qd: List[torch.Tensor],
     s_up = torch.clamp(allow_up / torch.clamp(f_up, min=1e-9), max=1.0)
     fz = torch.where(fz > 0, fz * s_up, fz)
 
-    # probe forces to bodies as [n_o; f] about p0, in probe order
+    # ---------------- dynamic OBBs (stage g, after both budgets): probes in
+    # the box frame; the reaction, summed over probes, acts on the box body
     f_ext = [(z3, z3) for _ in range(nb)]
+    for j in range(c.ndb):
+        b2 = c.dbox_body[j]
+        half = _tup(c.dbox_half[j])
+        bq = quat[b2] if c.dbox_ident[j] else qmul(quat[b2],
+                                                   _tup(c.dbox_quat[j]))
+        bp = vadd(pos[b2], qrot(quat[b2], _tup(c.dbox_pos[j])))
+        cbq = (bq[0], -bq[1], -bq[2], -bq[3])
+        lx, ly, lz = qrot(cbq, (px - bp[0], py - bp[1], pz - bp[2]))
+        dx = lx - _clip(lx, -half[0], half[0])
+        dy = ly - _clip(ly, -half[1], half[1])
+        dz = lz - _clip(lz, -half[2], half[2])
+        d_out = torch.sqrt(dx * dx + dy * dy + dz * dz)
+        outside = d_out > 1e-9
+        inv = 1.0 / torch.where(outside, d_out, 1.0)
+        d_in, (nxi, nyi, nzi) = _nearest_face(
+            [lx + half[0], half[0] - lx, ly + half[1], half[1] - ly,
+             lz + half[2], half[2] - lz], px)
+        nx, ny, nz = qrot(bq, (torch.where(outside, dx * inv, nxi),
+                               torch.where(outside, dy * inv, nyi),
+                               torch.where(outside, dz * inv, nzi)))
+        dist = torch.where(outside, d_out, -d_in) - rad
+        # relative velocity: probe minus the box body's point velocity
+        wb, vob = V[b2]
+        rvx = vx - (vob[0] + wb[1] * pzr - wb[2] * pyr)
+        rvy = vy - (vob[1] + wb[2] * pxr - wb[0] * pzr)
+        rvz = vz - (vob[2] + wb[0] * pyr - wb[1] * pxr)
+        v_n = rvx * nx + rvy * ny + rvz * nz
+        _, f_n = normal_force(dist, v_n)
+        gx, gy, gz = friction(f_n, rvx, rvy, rvz, v_n, nx, ny, nz)
+        keep = pk["keep"][j]      # the box body's own probes add nothing
+        gx = gx * keep
+        gy = gy * keep
+        gz = gz * keep
+        fx = fx + gx
+        fy = fy + gy
+        fz = fz + gz
+        n_o = (pyr * gz - pzr * gy, pzr * gx - pxr * gz, pxr * gy - pyr * gx)
+        react = tuple(_sum([t[k] for k in range(c.npr)])
+                      for t in n_o + (gx, gy, gz))
+        f_ext[b2] = sv_add(f_ext[b2], (tuple(zero - r for r in react[:3]),
+                                       tuple(zero - r for r in react[3:])))
+
+    # probe forces to bodies as [n_o; f] about p0, in probe order
     for k in range(c.npr):
         f = (fx[k], fy[k], fz[k])
         n_o = vcross((pxr[k], pyr[k], pzr[k]), f)
@@ -512,25 +644,38 @@ def _substep(c: AntConstants, q: List[torch.Tensor], qd: List[torch.Tensor],
     g = c.gravity
     a0 = (z3, (zero - g[0], zero - g[1], zero - g[2]))
     A: list = [None] * nb
-    A[0] = a0
-    for i in range(1, nb):
+    for i in range(nb):
         p = c.parent[i]
-        A[i] = sv_add(A[p], cross_motion(V[p], sv_scale(S[5 + i], u[5 + i])))
+        if p < 0 or jt[i] == FREE:
+            A[i] = a0
+        elif jt[i] in ONE_DOF:
+            A[i] = sv_add(A[p], cross_motion(V[p], sv_scale(S[dadr[i]],
+                                                            u[dadr[i]])))
+        else:   # FIXED
+            A[i] = A[p]
     fb: list = [None] * nb
     for i in range(nb):
         net = sv_add(i6vec(I6[i], A[i]),
                      cross_force(V[i], i6vec(I6[i], V[i])))
         fb[i] = (vsub(net[0], f_ext[i][0]), vsub(net[1], f_ext[i][1]))
     for i in range(nb - 1, 0, -1):
-        fb[c.parent[i]] = sv_add(fb[c.parent[i]], fb[i])
-    dof_body = [0] * 6 + list(range(1, nb))
-    tau_bias = [vdot(S[d][0], fb[dof_body[d]][0])
-                + vdot(S[d][1], fb[dof_body[d]][1]) for d in range(nv)]
+        if c.parent[i] >= 0:
+            fb[c.parent[i]] = sv_add(fb[c.parent[i]], fb[i])
+    dof_body = c.dof_body
+
+    def project(f6):
+        """Per-dof S^T f of a per-body spatial force (tau_bias, tau_grav)."""
+        return [vdot(S[d][0], f6[dof_body[d]][0])
+                + vdot(S[d][1], f6[dof_body[d]][1]) for d in range(nv)]
+
+    tau_bias = project(fb)
 
     # ---------------- CRBA mass matrix (composite inertias), lower triangle
     Icomp = [[list(r) for r in I6[i]] for i in range(nb)]
     for i in range(nb - 1, 0, -1):
         p = c.parent[i]
+        if p < 0:
+            continue
         for r in range(6):
             for k in range(6):
                 Icomp[p][r][k] = Icomp[p][r][k] + Icomp[i][r][k]
@@ -545,15 +690,31 @@ def _substep(c: AntConstants, q: List[torch.Tensor], qd: List[torch.Tensor],
                 val = val + float(c.armature[d])
             M[d][e] = val
 
+    # ---------------- gravity compensation of the servos: the zero-velocity,
+    # no-contact RNEA, i.e. subtree sums of I6 a0 (pallas_ant.py:664-678)
+    if c.has_servo:
+        fg = [i6vec(I6[i], a0) for i in range(nb)]
+        for i in range(nb - 1, 0, -1):
+            if c.parent[i] >= 0:
+                fg[c.parent[i]] = sv_add(fg[c.parent[i]], fg[i])
+        tau_grav = project(fg)
+
     # ---------------- applied + passive torques
     tau = [zero - float(c.damping[d]) * u[d] for d in range(nv)]
     for a_i, d in enumerate(c.act_dof):
-        tau[d] = tau[d] + float(c.act_gear[a_i]) * _clip(ctrl[a_i], -1.0, 1.0)
-    for i in range(1, nb):
-        d = 5 + i
+        if c.act_type[a_i] == 1:    # PD position servo, force-limited
+            f = float(c.act_kp[a_i]) * (ctrl[a_i] - q[c.act_qadr[a_i]]) \
+                - float(c.act_kd[a_i]) * u[d] + tau_grav[d]
+            lim = float(c.act_force[a_i])
+            tau[d] = tau[d] + _clip(f, -lim, lim)
+        else:                       # direct torque motor
+            tau[d] = tau[d] + float(c.act_gear[a_i]) * _clip(ctrl[a_i],
+                                                             -1.0, 1.0)
+    for i in one_dof:
+        d = dadr[i]
         if not c.lim_on[d]:
             continue
-        qi = q[6 + i]
+        qi = q[qadr[i]]
         over = _relu(qi - float(c.lim_hi[d]))
         under = _relu(float(c.lim_lo[d]) - qi)
         active = (over > 0) | (under > 0)
@@ -589,26 +750,29 @@ def _substep(c: AntConstants, q: List[torch.Tensor], qd: List[torch.Tensor],
     u_new = [_clip(u[d] + dt * ud[d], -vmax, vmax) for d in range(nv)]
     qd_new = list(u_new)
     q_new = list(q)
-    w_new = (u_new[3], u_new[4], u_new[5])
-    vp_new = vadd((u_new[0], u_new[1], u_new[2]), vcross(w_new, posr[0]))
-    vp_new = tuple(_clip(v, -vmax, vmax) for v in vp_new)
-    qd_new[0], qd_new[1], qd_new[2] = vp_new
-    for k in range(3):
-        q_new[k] = q[k] + dt * vp_new[k]
-    angle = torch.sqrt(w_new[0] * w_new[0] + w_new[1] * w_new[1]
-                       + w_new[2] * w_new[2])
-    safe = torch.where(angle > 1e-9, angle, 1.0)
-    ax = (w_new[0] / safe, w_new[1] / safe, w_new[2] / safe)
-    half = angle * dt * 0.5
-    sh = torch.sin(half)
-    dq = (torch.cos(half), ax[0] * sh, ax[1] * sh, ax[2] * sh)
-    qn = qmul(dq, (q[3], q[4], q[5], q[6]))
-    norm = torch.sqrt(qn[0] * qn[0] + qn[1] * qn[1] + qn[2] * qn[2]
-                      + qn[3] * qn[3])
-    for k in range(4):
-        q_new[3 + k] = qn[k] / norm
-    for i in range(1, nb):
-        qa, d = 6 + i, 5 + i
+    for i in frees:
+        d, qa = dadr[i], qadr[i]
+        w_new = (u_new[d + 3], u_new[d + 4], u_new[d + 5])
+        vp_new = vadd((u_new[d], u_new[d + 1], u_new[d + 2]),
+                      vcross(w_new, posr[i]))
+        vp_new = tuple(_clip(v, -vmax, vmax) for v in vp_new)
+        qd_new[d], qd_new[d + 1], qd_new[d + 2] = vp_new
+        for k in range(3):
+            q_new[qa + k] = q[qa + k] + dt * vp_new[k]
+        angle = torch.sqrt(w_new[0] * w_new[0] + w_new[1] * w_new[1]
+                           + w_new[2] * w_new[2])
+        safe = torch.where(angle > 1e-9, angle, 1.0)
+        ax = (w_new[0] / safe, w_new[1] / safe, w_new[2] / safe)
+        half = angle * dt * 0.5
+        sh = torch.sin(half)
+        dq = (torch.cos(half), ax[0] * sh, ax[1] * sh, ax[2] * sh)
+        qn = qmul(dq, (q[qa + 3], q[qa + 4], q[qa + 5], q[qa + 6]))
+        norm = torch.sqrt(qn[0] * qn[0] + qn[1] * qn[1] + qn[2] * qn[2]
+                          + qn[3] * qn[3])
+        for k in range(4):
+            q_new[qa + 3 + k] = qn[k] / norm
+    for i in one_dof:
+        qa, d = qadr[i], dadr[i]
         q_new[qa] = q[qa] + dt * qd_new[d]
         if c.lim_on[d]:
             lo, hi = float(c.lim_lo[d]), float(c.lim_hi[d])
@@ -626,10 +790,10 @@ def substep_reference(model, qpos: torch.Tensor, qvel: torch.Tensor,
     """Plain PyTorch substeps: (qpos [B, nq], qvel [B, nv], ctrl [B, nu])
     -> (qpos, qvel) after `n_substeps` (default: the model's) substeps.
 
-    `model` is a `Model` or its `AntConstants`. float32 throughout.
+    `model` is a `Model` or its `SubstepConstants`. float32 throughout.
     """
-    c = model if isinstance(model, AntConstants) \
-        else AntConstants.from_model(model)
+    c = model if isinstance(model, SubstepConstants) \
+        else SubstepConstants.from_model(model)
     n_sub = c.n_substeps if n_substeps is None else int(n_substeps)
     for name, t, w in (("qpos", qpos, c.nq), ("qvel", qvel, c.nv),
                        ("ctrl", ctrl, c.nu)):
@@ -640,6 +804,8 @@ def substep_reference(model, qpos: torch.Tensor, qvel: torch.Tensor,
     pk = {k: torch.tensor(getattr(c, "probe_" + k), dtype=torch.float32,
                           device=dev)[:, None]
           for k in ("rad", "fric", "kn", "cn")}
+    pk["keep"] = torch.tensor(c.dbox_keep, dtype=torch.float32,
+                              device=dev)[:, :, None]
     q = list(qpos.unbind(1))
     qd = list(qvel.unbind(1))
     ct = list(ctrl.unbind(1))

@@ -1,4 +1,4 @@
-"""Build, load and launch the CUDA substep kernel (`csrc/substep_ant.cu`).
+"""Build, load and launch the CUDA substep kernel (`csrc/substep.cu`).
 
 The kernel replaces `ddiffpg_tpu/physics/pallas_ant.py:make_substep_kernel`
 on an NVIDIA Hopper card. It is compiled by `nvcc` for `sm_90a` at first
@@ -6,10 +6,10 @@ use, from the sources in this package only, into a shared library with a
 plain C interface under `build/torch_ext/` at the root of the checkout,
 and bound with `ctypes` (a binding that includes PyTorch's headers takes
 minutes to compile; this one takes seconds). Model sizes are compile-time
-defines and the model's arrays go into the kernel's `__constant__` block
-once, when the library is loaded, so every distinct model gets its own
-library file (the build key hashes the source, the flags and the
-constants).
+defines, as are its Panda-only stages (`HAS_SERVO`, `NDB`), and the
+model's arrays go into the kernel's `__constant__` block once, when the
+library is loaded, so every distinct model gets its own library file (the
+build key hashes the source, the flags and the constants).
 
 Nothing here is imported or built until a kernel is asked for on a CUDA
 tensor, so the package imports on a machine with neither `nvcc` nor a card.
@@ -25,14 +25,15 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from ddiffpg_tpu_torch.physics.substep import AntConstants
+from ddiffpg_tpu_torch.physics.substep import SubstepConstants
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "substep_ant.cu"
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "substep.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 # -fmad=false: no contraction of a*b+c into FMAs, so the kernel rounds like
 # the plain version op by op (kernel vs plain on an H100 at 4096 envs: one
@@ -46,27 +47,43 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
 _LOADED: dict = {}
 
 
-def _fields(c: AntConstants):
-    """(name, ctypes type, numpy value) in the order of `struct AntModel`."""
+def _rows(a, dtype) -> np.ndarray:
+    """`a` [k, ...], or one row of zeros when k is 0: the kernel declares
+    the arrays of an empty table (no static or dynamic boxes) with one."""
+    a = np.asarray(a, dtype)
+    return a if a.shape[0] else np.zeros((1,) + a.shape[1:], dtype)
+
+
+def _fields(c: SubstepConstants):
+    """(name, ctypes type, numpy value) in the order of
+    `struct SubstepModel`."""
     i32, f32 = ctypes.c_int32, ctypes.c_float
-    nsb = max(c.nsb, 1)
-    box_min = np.zeros((nsb, 3), np.float32)
-    box_max = np.zeros((nsb, 3), np.float32)
-    box_min[:c.nsb] = c.box_min
-    box_max[:c.nsb] = c.box_max
     arrays = [
-        ("parent", i32, c.parent), ("ident_quat", i32, c.ident_quat),
+        ("parent", i32, c.parent), ("jnt_type", i32, c.jnt_type),
+        ("qposadr", i32, c.qposadr), ("dofadr", i32, c.dofadr),
+        ("ident_quat", i32, c.ident_quat),
         ("anc_mask", i32, c.anc_mask), ("axis", f32, c.axis),
         ("body_pos", f32, c.body_pos), ("body_quat", f32, c.body_quat),
         ("mass", f32, c.mass), ("com", f32, c.com),
         ("inertia", f32, c.inertia), ("damping", f32, c.damping),
         ("armature", f32, c.armature), ("lim_lo", f32, c.lim_lo),
         ("lim_hi", f32, c.lim_hi), ("lim_on", i32, c.lim_on),
+        ("dof_body", i32, c.dof_body),
         ("act_dof", i32, c.act_dof), ("act_gear", f32, c.act_gear),
+        ("act_type", i32, c.act_type), ("act_kp", f32, c.act_kp),
+        ("act_kd", f32, c.act_kd), ("act_force", f32, c.act_force),
+        ("act_qadr", i32, c.act_qadr),
         ("probe_body", i32, c.probe_body), ("probe_off", f32, c.probe_off),
         ("probe_rad", f32, c.probe_rad), ("probe_fric", f32, c.probe_fric),
         ("probe_kn", f32, c.probe_kn), ("probe_cn", f32, c.probe_cn),
-        ("box_min", f32, box_min), ("box_max", f32, box_max),
+        ("box_min", f32, _rows(c.box_min, np.float32)),
+        ("box_max", f32, _rows(c.box_max, np.float32)),
+        ("dbox_body", i32, _rows(c.dbox_body, np.int32)),
+        ("dbox_ident", i32, _rows(c.dbox_ident, np.int32)),
+        ("dbox_pos", f32, _rows(c.dbox_pos, np.float32)),
+        ("dbox_quat", f32, _rows(c.dbox_quat, np.float32)),
+        ("dbox_half", f32, _rows(c.dbox_half, np.float32)),
+        ("dbox_keep", f32, _rows(c.dbox_keep, np.float32)),
         ("gravity", f32, c.gravity)]
     scalars = ["dt", "inv_nb", "capk_scale", "inv_vreb", "vreb", "vtol",
                "vtol_eps", "lim_k", "lim_c", "vmax", "support_f", "m_total",
@@ -79,14 +96,14 @@ def _fields(c: AntConstants):
     return out
 
 
-def model_block(c: AntConstants) -> ctypes.Structure:
-    """The model constants packed as the kernel's `struct AntModel`."""
+def model_block(c: SubstepConstants) -> ctypes.Structure:
+    """The model constants packed as the kernel's `struct SubstepModel`."""
     fields = _fields(c)
 
-    class AntModel(ctypes.Structure):
+    class SubstepModel(ctypes.Structure):
         _fields_ = [(name, ct) for name, ct, _ in fields]
 
-    block = AntModel()
+    block = SubstepModel()
     for name, ct, val in fields:
         if isinstance(val, np.ndarray) and val.ndim == 1:
             getattr(block, name)[:] = val.tolist()
@@ -95,10 +112,11 @@ def model_block(c: AntConstants) -> ctypes.Structure:
     return block
 
 
-def defines(c: AntConstants) -> list:
+def defines(c: SubstepConstants) -> list:
     return [f"-D{k}={v}" for k, v in (
         ("NB", c.nb), ("NV", c.nv), ("NQ", c.nq), ("NU", c.nu),
-        ("NPR", c.npr), ("NSB", c.nsb), ("NSUB", c.n_substeps))]
+        ("NPR", c.npr), ("NSB", c.nsb), ("NDB", c.ndb),
+        ("HAS_SERVO", int(c.has_servo)), ("NSUB", c.n_substeps))]
 
 
 def _nvcc() -> str:
@@ -113,7 +131,7 @@ def _nvcc() -> str:
                        "built on this machine")
 
 
-def build(c: AntConstants) -> Path:
+def build(c: SubstepConstants) -> Path:
     """Compile the kernel for these constants (cached by content); returns
     the library's path. The compiler's report (registers, spills) is kept
     beside it as `<name>.log`."""
@@ -122,7 +140,7 @@ def build(c: AntConstants) -> Path:
     key.update(SOURCE.read_bytes())
     key.update(" ".join(NVCC_FLAGS + tuple(defines(c))).encode())
     key.update(bytes(block))
-    path = BUILD_DIR / f"substep_ant_{key.hexdigest()[:16]}.so"
+    path = BUILD_DIR / f"substep_{key.hexdigest()[:16]}.so"
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -139,31 +157,39 @@ def build(c: AntConstants) -> Path:
     return path
 
 
-def _load(c: AntConstants, device: torch.device):
+def build_all(consts) -> list:
+    """`build` for several models at once, one nvcc process each, all
+    started together; returns their paths in order."""
+    consts = list(consts)
+    with ThreadPoolExecutor(max_workers=max(len(consts), 1)) as pool:
+        return list(pool.map(build, consts))
+
+
+def _load(c: SubstepConstants, device: torch.device):
     path = build(c)
     lib = _LOADED.get(path)
     if lib is not None:
         return lib
     lib = ctypes.CDLL(str(path))
-    lib.substep_ant_model_bytes.restype = ctypes.c_int
-    lib.substep_ant_set_model.argtypes = [ctypes.c_void_p]
-    lib.substep_ant_set_model.restype = ctypes.c_int
-    lib.substep_ant_launch.argtypes = [ctypes.c_void_p] * 5 + [
+    lib.substep_model_bytes.restype = ctypes.c_int
+    lib.substep_set_model.argtypes = [ctypes.c_void_p]
+    lib.substep_set_model.restype = ctypes.c_int
+    lib.substep_launch.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_int, ctypes.c_void_p]
-    lib.substep_ant_launch.restype = ctypes.c_int
-    lib.substep_ant_error_string.argtypes = [ctypes.c_int]
-    lib.substep_ant_error_string.restype = ctypes.c_char_p
+    lib.substep_launch.restype = ctypes.c_int
+    lib.substep_error_string.argtypes = [ctypes.c_int]
+    lib.substep_error_string.restype = ctypes.c_char_p
     block = model_block(c)
-    if lib.substep_ant_model_bytes() != ctypes.sizeof(block):
-        raise RuntimeError("struct AntModel layout differs from its ctypes "
-                           f"mirror ({lib.substep_ant_model_bytes()} vs "
+    if lib.substep_model_bytes() != ctypes.sizeof(block):
+        raise RuntimeError("struct SubstepModel layout differs from its "
+                           f"ctypes mirror ({lib.substep_model_bytes()} vs "
                            f"{ctypes.sizeof(block)} bytes)")
     with torch.cuda.device(device):
         torch.cuda.init()
-        err = lib.substep_ant_set_model(ctypes.byref(block))
+        err = lib.substep_set_model(ctypes.byref(block))
     if err:
         raise RuntimeError("uploading the model constants failed: "
-                           + lib.substep_ant_error_string(err).decode())
+                           + lib.substep_error_string(err).decode())
     lib.device = device
     _LOADED[path] = lib
     return lib
@@ -171,7 +197,7 @@ def _load(c: AntConstants, device: torch.device):
 
 class SubstepKernel:
     """The fused substeps of one model on the card (`model` is a `Model` or
-    its `AntConstants`, which fix n_substeps):
+    its `SubstepConstants`, which fix n_substeps):
     (qpos [B, nq], qvel [B, nv], ctrl [B, nu]) float32 CUDA tensors ->
     new (qpos, qvel). Builds and loads the kernel when constructed.
 
@@ -179,8 +205,8 @@ class SubstepKernel:
     """
 
     def __init__(self, model, device: str | torch.device = "cuda"):
-        c = model if isinstance(model, AntConstants) \
-            else AntConstants.from_model(model)
+        c = model if isinstance(model, SubstepConstants) \
+            else SubstepConstants.from_model(model)
         self.consts = c
         self.device = torch.device(device)
         if self.device.type != "cuda":
@@ -211,12 +237,12 @@ class SubstepKernel:
         qpos_out = torch.empty_like(qpos)
         qvel_out = torch.empty_like(qvel)
         stream = torch.cuda.current_stream(self.device).cuda_stream
-        err = self._lib.substep_ant_launch(
+        err = self._lib.substep_launch(
             qpos.data_ptr(), qvel.data_ptr(), ctrl.data_ptr(),
             qpos_out.data_ptr(), qvel_out.data_ptr(), B, stream)
         if err:
-            raise RuntimeError("substep_ant launch failed: "
-                               + self._lib.substep_ant_error_string(
+            raise RuntimeError("substep launch failed: "
+                               + self._lib.substep_error_string(
                                    err).decode())
         self.launches += 1
         return qpos_out, qvel_out

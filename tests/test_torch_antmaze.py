@@ -48,7 +48,8 @@ def test_step_batched_parity(reward_type):
     positions and 2e-4 on velocities (and the dense reward, a distance);
     the rest exact."""
     jenv = JaxAntMaze(random_init=True, reward_type=reward_type)
-    env = AntMazeEnv(random_init=True, reward_type=reward_type)
+    env = AntMazeEnv(random_init=True, reward_type=reward_type,
+                     device="cpu")
     qpos, qvel, t, act = _batch(jenv)
     keys = jax.random.split(jax.random.PRNGKey(0), B)
     jstate = JaxState(jnp.asarray(qpos), jnp.asarray(qvel), jnp.asarray(t),
@@ -79,7 +80,7 @@ def test_step_batched_parity(reward_type):
 
 
 def test_goal_probe():
-    env = make("antmaze-v1", num_envs=4, random_init=True)
+    env = make("antmaze-v1", num_envs=4, random_init=True, device="cpu")
     state, _ = env.reset()
     qpos = state.qpos.clone()
     qpos[0, :2] = torch.tensor([-7.8, 0.1])
@@ -94,7 +95,7 @@ def test_goal_probe():
 
 
 def test_truncation_at_500_steps():
-    env = make("antmaze-v1", num_envs=3)
+    env = make("antmaze-v1", num_envs=3, device="cpu")
     state, _ = env.reset()
     state = state._replace(t=torch.tensor([499, 498, 0], dtype=torch.int32))
     state, _, rew, done, info = env.step(state, torch.zeros(3, 8))
@@ -105,7 +106,7 @@ def test_truncation_at_500_steps():
 
 
 def test_nan_velocity_resets_with_finite_obs():
-    env = make("antmaze-v1", num_envs=2, random_init=True)
+    env = make("antmaze-v1", num_envs=2, random_init=True, device="cpu")
     state, _ = env.reset()
     qvel = state.qvel.clone()
     qvel[0, 3] = float("nan")
@@ -120,7 +121,8 @@ def test_nan_velocity_resets_with_finite_obs():
 
 
 def test_reset_draws_start_cell_xy():
-    env = make("antmaze-v1", num_envs=256, random_init=True, seed=3)
+    env = make("antmaze-v1", num_envs=256, random_init=True, seed=3,
+               device="cpu")
     state, obs = env.reset()
     xy = state.qpos[:, :2]
     assert float(xy.abs().max()) <= 2.0 and float(xy.std()) > 0.5

@@ -11,10 +11,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from ddiffpg_tpu.physics import maze  # noqa: E402
+import chip_smoke  # noqa: E402
+from ddiffpg_tpu_torch.physics import maze  # noqa: E402
 from ddiffpg_tpu_torch.physics.ant import build_ant  # noqa: E402
+from ddiffpg_tpu_torch.physics.panda import build_panda_scene  # noqa: E402
 from ddiffpg_tpu_torch.physics.substep import (  # noqa: E402
-    AntConstants, substep_reference)
+    SubstepConstants, substep_reference)
 
 
 @pytest.fixture
@@ -46,7 +48,7 @@ def test_kernel_matches_plain_one_substep(card, B):
     kern = SubstepKernel(m, device=card)
     args = _states(m, B, 0, card)
     got = kern(*args)
-    want = substep_reference(AntConstants.from_model(m), *args)
+    want = substep_reference(SubstepConstants.from_model(m), *args)
     torch.cuda.synchronize()
     assert kern.launches == 1
     torch.testing.assert_close(got[0], want[0], atol=5e-6, rtol=0)
@@ -54,19 +56,51 @@ def test_kernel_matches_plain_one_substep(card, B):
 
 
 @pytest.mark.cuda
-def test_kernel_wrapper_checks_inputs(card):
+@pytest.mark.parametrize("B", [20, 4096])
+@pytest.mark.parametrize("task", ["DrawerMulti", "Cabinet"])
+def test_panda_kernel_matches_plain_one_substep(card, task, B):
+    """tests/test_pallas.py's Panda tolerances: qpos 1e-5, qvel 2e-4; for
+    DrawerMulti also with hand or finger probes inside a drawer's front."""
     from ddiffpg_tpu_torch.physics.substep_cuda import SubstepKernel
 
-    m = build_ant(static_boxes=maze.compile_boxes(maze.MAZE_v1), dt=0.01,
-                  n_substeps=1)
-    kern = SubstepKernel(m, device=card)
-    qpos, qvel, ctrl = _states(m, 8, 1, card)
-    with pytest.raises(ValueError):
-        kern(qpos.double(), qvel, ctrl)
-    with pytest.raises(ValueError):
-        kern(qpos, qvel[:, :10], ctrl)
-    with pytest.raises(ValueError):
-        kern(qpos, qvel, ctrl.t().contiguous().t())
-    with pytest.raises(ValueError):
-        kern(qpos.cpu(), qvel, ctrl)
-    assert kern.launches == 0
+    m, meta = build_panda_scene(task, n_substeps=1)
+    c = SubstepConstants.from_model(m)
+    kern = SubstepKernel(c, device=card)
+    batches = [chip_smoke.panda_states(m, meta, B, 0, device=card)]
+    if task == "DrawerMulti":
+        batches.append(chip_smoke.drawer_contact_states(m, meta, c, B, 1,
+                                                        device=card))
+    for args in batches:
+        got = kern(*args)
+        want = substep_reference(c, *args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=0)
+        torch.testing.assert_close(got[1], want[1], atol=2e-4, rtol=0)
+    assert kern.launches == len(batches)
+
+
+@pytest.mark.cuda
+def test_kernel_wrapper_checks_inputs(card):
+    """Wrong dtype, width, layout or device is refused for the ant's and
+    DrawerMulti's sizes, and nothing is launched."""
+    from ddiffpg_tpu_torch.physics.substep_cuda import SubstepKernel
+
+    ant = build_ant(static_boxes=maze.compile_boxes(maze.MAZE_v1), dt=0.01,
+                    n_substeps=1)
+    drawer, meta = build_panda_scene("DrawerMulti", n_substeps=1)
+    for m, args in ((ant, _states(ant, 8, 1, card)),
+                    (drawer, chip_smoke.panda_states(drawer, meta, 8, 1,
+                                                     device=card))):
+        kern = SubstepKernel(m, device=card)
+        qpos, qvel, ctrl = args
+        with pytest.raises(ValueError):
+            kern(qpos.double(), qvel, ctrl)
+        with pytest.raises(ValueError):
+            kern(qpos, qvel[:, :m.nv - 1], ctrl)
+        with pytest.raises(ValueError):
+            kern(qpos, qvel, ctrl[:, :m.nu - 1])
+        with pytest.raises(ValueError):
+            kern(qpos, qvel, ctrl.t().contiguous().t())
+        with pytest.raises(ValueError):
+            kern(qpos.cpu(), qvel, ctrl)
+        assert kern.launches == 0

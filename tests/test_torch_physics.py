@@ -1,6 +1,6 @@
-"""The port's physics against the JAX package: scene builder, the plain
-substep against the Pallas kernel (interpret mode) and engine_cl, the model
-check, and the packing of the CUDA kernel's constants."""
+"""The port's physics against the JAX package for the ant: scene builder,
+the plain substep against the Pallas kernel (interpret mode) and engine_cl,
+the model check, and the packing of the CUDA kernel's constants."""
 
 import ctypes
 import dataclasses
@@ -16,8 +16,9 @@ from ddiffpg_tpu.physics import engine_cl, maze, pallas_ant  # noqa: E402
 from ddiffpg_tpu.physics.ant import build_ant as build_ant_jax  # noqa: E402
 from ddiffpg_tpu_torch.physics import substep_cuda  # noqa: E402
 from ddiffpg_tpu_torch.physics.ant import build_ant  # noqa: E402
+from ddiffpg_tpu_torch.physics.panda import build_panda_scene  # noqa: E402
 from ddiffpg_tpu_torch.physics.substep import (  # noqa: E402
-    AntConstants, substep_reference)
+    SubstepConstants, substep_reference)
 
 
 def _states(m, B, seed, wall=False):
@@ -97,28 +98,40 @@ def test_ten_substeps_match_engine_cl():
 
 
 def test_model_check_rejects_panda():
-    from ddiffpg_tpu.physics.panda import build_panda_scene
-
-    m, _ = build_panda_scene("Reach")
-    with pytest.raises(NotImplementedError):
-        AntConstants.from_model(m)
-    with pytest.raises(NotImplementedError):
-        substep_reference(m, torch.zeros((2, m.nq)), torch.zeros((2, m.nv)),
-                          torch.zeros((2, m.nu)))
-    with pytest.raises(NotImplementedError):
-        substep_cuda.SubstepKernel(m)
+    """A Panda scene taken out of the Pallas kernel's model class (a FREE
+    joint below the root, a joint anchored off the body origin, an unknown
+    actuator type) is refused by the constants, the plain substep and the
+    kernel wrapper alike; the scene itself is accepted."""
+    m0, _ = build_panda_scene("Reach")
+    SubstepConstants.from_model(m0)
+    jt = m0.jnt_type.copy()
+    jt[1] = 0
+    anchor = m0.jnt_pos.copy()
+    anchor[2, 0] = 0.01
+    for m in (dataclasses.replace(m0, jnt_type=jt),
+              dataclasses.replace(m0, jnt_pos=anchor),
+              dataclasses.replace(m0, act_type=m0.act_type + 1)):
+        with pytest.raises(NotImplementedError):
+            SubstepConstants.from_model(m)
+        with pytest.raises(NotImplementedError):
+            substep_reference(m, torch.zeros((2, m.nq)),
+                              torch.zeros((2, m.nv)), torch.zeros((2, m.nu)))
+        with pytest.raises(NotImplementedError):
+            substep_cuda.SubstepKernel(m)
 
 
 def test_kernel_constant_block_layout():
     """The ctypes block holds every constant, 4 bytes each, no padding, in
-    the order of csrc/substep_ant.cu's struct AntModel."""
+    the order of csrc/substep.cu's struct SubstepModel (the dynamic-box
+    table, empty for the ant, takes one row)."""
     m = build_ant(static_boxes=maze.compile_boxes(maze.MAZE_v1), dt=0.01,
                   n_substeps=10)
-    c = AntConstants.from_model(m)
+    c = SubstepConstants.from_model(m)
     assert (c.nb, c.nv, c.nq, c.nu, c.npr, c.nsb) == (9, 14, 15, 8, 25, 17)
     block = substep_cuda.model_block(c)
-    n = (3 * c.nb + c.nb * (3 + 3 + 4 + 1 + 3 + 9) + 5 * c.nv + 2 * c.nu
-         + c.npr * (1 + 3 + 4) + 2 * 3 * c.nsb + 3 + 13)
+    n = (6 * c.nb + c.nb * (3 + 3 + 4 + 1 + 3 + 9) + 6 * c.nv + 7 * c.nu
+         + c.npr * (1 + 3 + 4) + 2 * 3 * c.nsb + (2 + 3 + 4 + 3 + c.npr)
+         + 3 + 13)
     assert ctypes.sizeof(block) == 4 * n
     raw = np.frombuffer(bytes(block), np.float32)
     assert raw[-13] == np.float32(0.01)               # dt

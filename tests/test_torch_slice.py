@@ -42,7 +42,7 @@ def test_two_control_steps_match_jax():
     widen the physics' differences: obs positions 1e-4 and velocities 2e-3,
     5x and 10x tests/test_engine_cl.py's bounds for 5 substeps."""
     jenv = jax_make("antmaze-v1", num_envs=B, random_init=True)
-    env = make("antmaze-v1", num_envs=B, random_init=True)
+    env = make("antmaze-v1", num_envs=B, random_init=True, device="cpu")
     actor = JaxPolicy(action_dim=8, diffusion_iter=K)
     key = jax.random.PRNGKey(0)
     params = actor.init(key, jnp.zeros((1, 8)), jnp.zeros((1,)),
@@ -96,7 +96,7 @@ def test_two_control_steps_match_jax():
 def test_collect_records_and_auto_reset():
     """collect's records have the right shapes and values, and an env
     whose episode ends inside the window restarts its clock."""
-    env = make("antmaze-v1", num_envs=4, random_init=True)
+    env = make("antmaze-v1", num_envs=4, random_init=True, device="cpu")
     g = torch.Generator().manual_seed(0)
     policy = DiffusionPolicy(8, 29 + EMB, K, generator=g)
     state, obs = env.reset()
@@ -114,22 +114,28 @@ def test_collect_records_and_auto_reset():
 
 
 def test_port_runs_without_jax():
-    """Importing the port, building the env and stepping it on the CPU
-    never loads jax (the card's machine has none)."""
+    """Importing every module of the port and chip_smoke, then building and
+    stepping antmaze-v1 and PandaDrawerMultiJoints-v3 on the CPU, never
+    loads jax, jaxlib, flax or the JAX package (the card's machine has no
+    JAX, and the port keeps its own copies of what it needs)."""
     code = (
-        "import sys, torch\n"
+        "import importlib, pkgutil, sys, torch\n"
+        "import ddiffpg_tpu_torch\n"
+        "for mod in pkgutil.walk_packages(ddiffpg_tpu_torch.__path__,\n"
+        "                                 'ddiffpg_tpu_torch.'):\n"
+        "    importlib.import_module(mod.name)\n"
         "import chip_smoke\n"
-        "import ddiffpg_tpu_torch.physics.substep_cuda\n"
-        "import ddiffpg_tpu_torch.utils.convert\n"
         "from ddiffpg_tpu_torch.agents.ddiffpg import collect\n"
         "from ddiffpg_tpu_torch.envs import make\n"
         "from ddiffpg_tpu_torch.models.diffusion import DiffusionPolicy\n"
-        "env = make('antmaze-v1', num_envs=2, random_init=True)\n"
-        "s, o = env.reset()\n"
-        "pol = DiffusionPolicy(8, 34, 5)\n"
-        "collect(env, pol, s, o, 1, 0.5, torch.zeros(11, 5), 0, .05, .6)\n"
-        "bad = sorted(m for m in ('jax', 'jaxlib', 'flax') if m in "
-        "sys.modules)\n"
+        "for name, obs_dim in (('antmaze-v1', 29),\n"
+        "                      ('PandaDrawerMultiJoints-v3', 11)):\n"
+        "    env = make(name, num_envs=2, device='cpu')\n"
+        "    s, o = env.reset()\n"
+        "    pol = DiffusionPolicy(8, obs_dim + 5, 5)\n"
+        "    collect(env, pol, s, o, 1, 0.5, torch.zeros(11, 5), 0, .05, .6)\n"
+        "bad = sorted(m for m in ('jax', 'jaxlib', 'flax', 'ddiffpg_tpu')\n"
+        "             if m in sys.modules)\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
