@@ -211,7 +211,8 @@ def substep_bound(c: SubstepConstants, qpos, qvel, ctrl):
     return max(t_ops, t_bytes) * 1e3, by, counter.ops
 
 
-def ant_states(init_qpos: np.ndarray, B: int, seed: int, wall: bool):
+def ant_states(init_qpos: np.ndarray, B: int, seed: int, wall: bool,
+               device="cuda"):
     """Random ant states as tests/test_pallas.py draws them; with `wall`,
     torsos sit 0.45 m from the start cell's walls moving into them, half
     against the x = -2 face and half against the y = +2 face."""
@@ -228,7 +229,7 @@ def ant_states(init_qpos: np.ndarray, B: int, seed: int, wall: bool):
         qvel[:h, 0] = -2.0
         qpos[h:, 1] = 1.55 + rng.uniform(-0.1, 0.1, B - h)
         qvel[h:, 1] = 2.0
-    return tuple(torch.tensor(a, device="cuda") for a in (qpos, qvel, ctrl))
+    return tuple(torch.tensor(a, device=device) for a in (qpos, qvel, ctrl))
 
 
 def panda_states(m, meta, B: int, seed: int, device="cuda"):
@@ -467,6 +468,10 @@ def main() -> int:
     k10, k1 = SubstepKernel(ant_c[10]), SubstepKernel(ant_c[1])
     pk = {key: SubstepKernel(c) for key, c in panda_c.items()}
     log("2 build", f"loaded in {time.time() - t0:.1f} s")
+    for label, k in zip(labels, [k10, k1, *pk.values()]):
+        log("2 build", f"{label}: {k.lanes} lanes per env, {k.groups} envs "
+            f"per block of {k.lanes * k.groups} threads, {k.shared_bytes} "
+            "shared bytes per block")
 
     # ------------------------------------ 3. ant kernel vs plain on the card
     init_qpos = np.asarray(ant_env.model.init_qpos)

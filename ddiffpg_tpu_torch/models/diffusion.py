@@ -86,16 +86,19 @@ class DiffusionPolicy(nn.Module):
     def __init__(self, action_dim: int, cond_dim: int,
                  diffusion_iter: int = 5, dim: int = 256,
                  schedule: str = "squaredcos_cap_v2",
-                 device: str | torch.device = "cpu",
+                 device: str | torch.device = "cuda",
                  generator: torch.Generator | None = None):
-        """`generator` (a CPU generator) draws the initial weights."""
+        """Built on the card unless `device` says otherwise (on a machine
+        without one, only `device="cpu"` builds). `generator` (a CPU
+        generator) draws the initial weights."""
         super().__init__()
         self.action_dim = action_dim
         self.diffusion_iter = diffusion_iter
         self.net = DiffusionNet(action_dim, cond_dim, dim)
         self.net.reset_parameters(generator)
-        self.to(device)
+        # first the tables: without a card they raise for device="cuda"
         self.tables = ddpm.make_tables(diffusion_iter, schedule, device)
+        self.to(device)
 
     def forward(self, x, t, cond):
         return self.net(x, t, cond)

@@ -52,7 +52,13 @@ def vp_betas(num_timesteps: int, beta_min=0.1, beta_max=10.0) -> np.ndarray:
 
 
 def make_tables(num_timesteps: int, schedule: str = "squaredcos_cap_v2",
-                device: str | torch.device = "cpu") -> DDPMTables:
+                device: str | torch.device = "cuda") -> DDPMTables:
+    """The schedule's tables as float32 tensors on `device` (the card
+    unless the caller asks for the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("make_tables: no CUDA card; pass device='cpu' "
+                           "for the tables on the CPU")
     if schedule in ("squaredcos_cap_v2", "cosine"):
         betas = squaredcos_cap_v2_betas(num_timesteps)
     elif schedule == "linear":

@@ -7,9 +7,12 @@ plain C interface under `build/torch_ext/` at the root of the checkout,
 and bound with `ctypes` (a binding that includes PyTorch's headers takes
 minutes to compile; this one takes seconds). Model sizes are compile-time
 defines, as are its Panda-only stages (`HAS_SERVO`, `NDB`), and the
-model's arrays go into the kernel's `__constant__` block once, when the
-library is loaded, so every distinct model gets its own library file (the
-build key hashes the source, the flags and the constants).
+model's arrays go into the kernel's device-memory block once, when the
+library is loaded (each block of the kernel copies them to shared memory at
+its start), so every distinct model gets its own library file (the build
+key hashes the source, the flags and the constants). The launch geometry,
+a group of `lanes_for(c)` threads per env and 256 threads a block, is
+compile-time too (`launch_geometry`).
 
 Nothing here is imported or built until a kernel is asked for on a CUDA
 tensor, so the package imports on a machine with neither `nvcc` nor a card.
@@ -42,8 +45,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
+BLOCK_THREADS = 256
+MAX_SHARED_BYTES = 232_448   # dynamic shared memory of one block, H100
 # loaded libraries by path: dlopen hands back one handle per path, and its
-# __constant__ block holds the model it was built for
+# model block holds the model it was built for
 _LOADED: dict = {}
 
 
@@ -112,8 +117,55 @@ def model_block(c: SubstepConstants) -> ctypes.Structure:
     return block
 
 
-def defines(c: SubstepConstants) -> list:
+def lanes_for(c: SubstepConstants) -> int:
+    """Threads per env: 16, two envs a warp and 16 a block. Of 8, 16 and
+    32, 16 was the fastest for the ant, DrawerMulti and Reach at 4096 envs
+    on an H100 (PERF.md, the L sweep): 8 leaves an SM too few warps to
+    hide latency, 32 spends twice the issue slots on the serial tree
+    walks. A model whose 16 slices do not fit one block's shared memory
+    takes 32 (8 slices a block)."""
+    return 16 if _shared_bytes(c, 16) <= MAX_SHARED_BYTES else 32
+
+
+def slice_floats(c: SubstepConstants) -> int:
+    """Floats in the kernel's `struct Slice`, one env's state in shared
+    memory: what lives through a substep, plus the largest of the union's
+    members (FK, contacts, RNEA, CRBA and solve)."""
+    nb, nv, npr, ndb = c.nb, c.nv, c.npr, c.ndb
+    live = (c.nq + nv + c.nu + nb * (3 + 4 + 3) + 3 + nv * 6 + nv + nb * 6
+            + nb * 36 + 1 + nb * 18 + nv + (nv if c.has_servo else 0))
+    contacts = 8 * npr + ((6 * npr + 3 * ndb * npr + 6 * ndb) if ndb else 0)
+    nlt = nv * (nv + 1) // 2
+    return live + max(nb * 4, contacts, nb * 18, nlt + 4 * nv)
+
+
+def _round16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def _shared_bytes(c: SubstepConstants, lanes: int) -> int:
+    return (_round16(ctypes.sizeof(model_block(c)))
+            + BLOCK_THREADS // lanes * _round16(4 * slice_floats(c)))
+
+
+def launch_geometry(c: SubstepConstants, lanes: int | None = None):
+    """(lanes per env, envs per block, dynamic shared bytes per block) of
+    the kernel built for `c`: the model block, then one `Slice` per env,
+    each rounded up to 16 bytes."""
+    lanes = lanes_for(c) if lanes is None else int(lanes)
+    if lanes not in (8, 16, 32):
+        raise ValueError(f"lanes must be 8, 16 or 32, got {lanes}")
+    shared = _shared_bytes(c, lanes)
+    if shared > MAX_SHARED_BYTES:
+        raise ValueError(f"{shared} bytes of shared memory a block, more "
+                         f"than {MAX_SHARED_BYTES}")
+    return lanes, BLOCK_THREADS // lanes, shared
+
+
+def defines(c: SubstepConstants, lanes: int | None = None) -> list:
+    lanes, groups, _ = launch_geometry(c, lanes)
     return [f"-D{k}={v}" for k, v in (
+        ("LANES", lanes), ("GROUPS", groups),
         ("NB", c.nb), ("NV", c.nv), ("NQ", c.nq), ("NU", c.nu),
         ("NPR", c.npr), ("NSB", c.nsb), ("NDB", c.ndb),
         ("HAS_SERVO", int(c.has_servo)), ("NSUB", c.n_substeps))]
@@ -131,14 +183,15 @@ def _nvcc() -> str:
                        "built on this machine")
 
 
-def build(c: SubstepConstants) -> Path:
+def build(c: SubstepConstants, lanes: int | None = None) -> Path:
     """Compile the kernel for these constants (cached by content); returns
     the library's path. The compiler's report (registers, spills) is kept
     beside it as `<name>.log`."""
     block = model_block(c)
+    flags = defines(c, lanes)
     key = hashlib.sha256()
     key.update(SOURCE.read_bytes())
-    key.update(" ".join(NVCC_FLAGS + tuple(defines(c))).encode())
+    key.update(" ".join(NVCC_FLAGS + tuple(flags)).encode())
     key.update(bytes(block))
     path = BUILD_DIR / f"substep_{key.hexdigest()[:16]}.so"
     if path.exists():
@@ -146,7 +199,7 @@ def build(c: SubstepConstants) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *defines(c), "-o", tmp, str(SOURCE)]
+    cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp, str(SOURCE)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     path.with_suffix(".log").write_text(
         " ".join(cmd) + "\n" + res.stdout + res.stderr)
@@ -165,13 +218,14 @@ def build_all(consts) -> list:
         return list(pool.map(build, consts))
 
 
-def _load(c: SubstepConstants, device: torch.device):
-    path = build(c)
+def _load(c: SubstepConstants, device: torch.device, lanes: int | None):
+    path = build(c, lanes)
     lib = _LOADED.get(path)
     if lib is not None:
         return lib
     lib = ctypes.CDLL(str(path))
     lib.substep_model_bytes.restype = ctypes.c_int
+    lib.substep_shared_bytes.restype = ctypes.c_int
     lib.substep_set_model.argtypes = [ctypes.c_void_p]
     lib.substep_set_model.restype = ctypes.c_int
     lib.substep_launch.argtypes = [ctypes.c_void_p] * 5 + [
@@ -184,11 +238,17 @@ def _load(c: SubstepConstants, device: torch.device):
         raise RuntimeError("struct SubstepModel layout differs from its "
                            f"ctypes mirror ({lib.substep_model_bytes()} vs "
                            f"{ctypes.sizeof(block)} bytes)")
+    shared = launch_geometry(c, lanes)[2]
+    if lib.substep_shared_bytes() != shared:
+        raise RuntimeError("struct Slice's size differs from slice_floats "
+                           f"({lib.substep_shared_bytes()} vs {shared} "
+                           "shared bytes a block)")
     with torch.cuda.device(device):
         torch.cuda.init()
         err = lib.substep_set_model(ctypes.byref(block))
     if err:
-        raise RuntimeError("uploading the model constants failed: "
+        raise RuntimeError("setting up the kernel (model constants, shared "
+                           "memory) failed: "
                            + lib.substep_error_string(err).decode())
     lib.device = device
     _LOADED[path] = lib
@@ -199,12 +259,14 @@ class SubstepKernel:
     """The fused substeps of one model on the card (`model` is a `Model` or
     its `SubstepConstants`, which fix n_substeps):
     (qpos [B, nq], qvel [B, nv], ctrl [B, nu]) float32 CUDA tensors ->
-    new (qpos, qvel). Builds and loads the kernel when constructed.
+    new (qpos, qvel). Builds and loads the kernel when constructed;
+    `lanes` overrides `lanes_for` (threads per env: 8, 16 or 32).
 
     `launches` counts the kernel launches made through this object.
     """
 
-    def __init__(self, model, device: str | torch.device = "cuda"):
+    def __init__(self, model, device: str | torch.device = "cuda",
+                 lanes: int | None = None):
         c = model if isinstance(model, SubstepConstants) \
             else SubstepConstants.from_model(model)
         self.consts = c
@@ -214,7 +276,8 @@ class SubstepKernel:
                              f"{self.device}")
         if self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
-        self._lib = _load(c, self.device)
+        self.lanes, self.groups, self.shared_bytes = launch_geometry(c, lanes)
+        self._lib = _load(c, self.device, lanes)
         if self._lib.device != self.device:
             raise RuntimeError("this model's kernel is loaded on "
                                f"{self._lib.device}, not {self.device}")

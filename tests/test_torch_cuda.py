@@ -38,7 +38,7 @@ def _states(m, B, seed, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [20, 4096])
+@pytest.mark.parametrize("B", [1, 20, 4095, 4096])
 def test_kernel_matches_plain_one_substep(card, B):
     """tests/test_pallas.py's tolerances: qpos 5e-6, qvel 5e-5."""
     from ddiffpg_tpu_torch.physics.substep_cuda import SubstepKernel
@@ -56,7 +56,7 @@ def test_kernel_matches_plain_one_substep(card, B):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [20, 4096])
+@pytest.mark.parametrize("B", [1, 20, 4095, 4096])
 @pytest.mark.parametrize("task", ["DrawerMulti", "Cabinet"])
 def test_panda_kernel_matches_plain_one_substep(card, task, B):
     """tests/test_pallas.py's Panda tolerances: qpos 1e-5, qvel 2e-4; for
@@ -104,3 +104,74 @@ def test_kernel_wrapper_checks_inputs(card):
         with pytest.raises(ValueError):
             kern(qpos.cpu(), qvel, ctrl)
         assert kern.launches == 0
+
+
+def _model(name, n_substeps=None):
+    """(model, meta, constants) of the ant on antmaze-v1 or a Panda scene;
+    a whole control step unless `n_substeps` is given."""
+    if name == "ant":
+        m = build_ant(static_boxes=maze.compile_boxes(maze.MAZE_v1),
+                      dt=0.01, n_substeps=n_substeps or 10)
+        return m, None, SubstepConstants.from_model(m)
+    m, meta = build_panda_scene(name, **(
+        {} if n_substeps is None else {"n_substeps": n_substeps}))
+    return m, meta, SubstepConstants.from_model(m)
+
+
+def _batches(name, m, meta, c, B, device):
+    if name == "ant":
+        init = np.asarray(m.init_qpos)
+        return [chip_smoke.ant_states(init, B, 0, False, device=device),
+                chip_smoke.ant_states(init, B, 3, True, device=device)]
+    out = [chip_smoke.panda_states(m, meta, B, 1, device=device)]
+    if name == "DrawerMulti":
+        out.append(chip_smoke.drawer_contact_states(m, meta, c, B, 2,
+                                                    device=device))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ant", "Reach", "PegInsertion",
+                                  "DrawerMulti", "Cabinet"])
+def test_kernel_matches_plain_control_step(card, name):
+    """A whole control step (the ant's 10 substeps, Panda's 20) at B = 1,
+    20, 4095 and 4096, against the plain version: ant qpos 5e-5 / qvel
+    5e-4, Panda 1e-4 / 5e-3 (chip_smoke.py's control-step tolerances); the
+    rows of every smaller batch equal the 4096-env launch's bit for bit."""
+    from ddiffpg_tpu_torch.physics.substep_cuda import SubstepKernel
+
+    m, meta, c = _model(name)
+    tq, tv = (5e-5, 5e-4) if name == "ant" else (1e-4, 5e-3)
+    kern = SubstepKernel(c, device=card)
+    for args in _batches(name, m, meta, c, 4096, card):
+        full = kern(*args)
+        for B in (1, 20, 4095, 4096):
+            sub = tuple(a[:B].contiguous() for a in args)
+            got = kern(*sub)
+            want = substep_reference(c, *sub)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got[0], want[0], atol=tq, rtol=0)
+            torch.testing.assert_close(got[1], want[1], atol=tv, rtol=0)
+            assert torch.equal(got[0], full[0][:B])
+            assert torch.equal(got[1], full[1][:B])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ant", "DrawerMulti"])
+def test_lane_counts_agree_bitwise(card, name):
+    """The kernel built with 8, 16 and 32 threads per env gives the same
+    bits: each element's operations and their order do not depend on how
+    the env's work is spread over its lanes."""
+    from ddiffpg_tpu_torch.physics.substep_cuda import SubstepKernel
+
+    m, meta, c = _model(name, n_substeps=1)
+    outs = []
+    for lanes in (8, 16, 32):
+        kern = SubstepKernel(c, device=card, lanes=lanes)
+        assert kern.lanes == lanes
+        outs.append([kern(*args) for args in
+                     _batches(name, m, meta, c, 333, card)])
+    torch.cuda.synchronize()
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])

@@ -26,16 +26,28 @@ def _jax_policy(B=16, seed=0):
     actor = JaxPolicy(action_dim=A, diffusion_iter=K)
     params = actor.init(jax.random.PRNGKey(seed), jnp.zeros((1, A)),
                         jnp.zeros((1,)), jnp.zeros((1, OBS + EMB)))
-    port = DiffusionPolicy(A, OBS + EMB, K)
+    port = DiffusionPolicy(A, OBS + EMB, K, device="cpu")
     load_diffusion(port, jax.tree.map(np.asarray, params))
     return actor, params, port
+
+
+def test_policy_defaults_to_card():
+    """Built with no device, the policy and its DDPM tables belong on the
+    card: where there is none they raise, and nothing is quietly built on
+    the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default builds there")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        DiffusionPolicy(A, OBS + EMB, K)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        ddpm.make_tables(K)
 
 
 @pytest.mark.parametrize("schedule", ["squaredcos_cap_v2", "linear", "vp"])
 def test_ddpm_tables(schedule):
     """Same float64 schedule rounded once to float32: exact."""
     want = jddpm.make_tables(K, schedule)
-    got = ddpm.make_tables(K, schedule)
+    got = ddpm.make_tables(K, schedule, device="cpu")
     for f in ("betas", "alphas", "alphas_cumprod"):
         np.testing.assert_array_equal(getattr(got, f).numpy(),
                                       np.asarray(getattr(want, f)))
@@ -46,7 +58,7 @@ def test_ddpm_add_noise_and_step():
     rng = np.random.RandomState(0)
     x0, eps, nz, xt = (rng.randn(16, A).astype(np.float32) for _ in range(4))
     t = rng.randint(0, K, 16)
-    jt, pt = jddpm.make_tables(K), ddpm.make_tables(K)
+    jt, pt = jddpm.make_tables(K), ddpm.make_tables(K, device="cpu")
     np.testing.assert_allclose(
         ddpm.add_noise(pt, torch.tensor(x0), torch.tensor(nz),
                        torch.tensor(t)).numpy(),

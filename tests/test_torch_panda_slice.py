@@ -50,7 +50,7 @@ def test_two_control_steps_match_jax():
     key = jax.random.PRNGKey(0)
     params = actor.init(key, jnp.zeros((1, A)), jnp.zeros((1,)),
                         jnp.zeros((1, O + EMB)))
-    policy = load_diffusion(DiffusionPolicy(A, O + EMB, K),
+    policy = load_diffusion(DiffusionPolicy(A, O + EMB, K, device="cpu"),
                             jax.tree.map(np.asarray, params))
     table = np.asarray(jax.random.normal(jax.random.PRNGKey(1), (11, EMB)))
 
@@ -106,7 +106,7 @@ def test_collect_records_and_auto_reset():
     and an env whose episode ends inside the window restarts its clock."""
     env = make(NAME, num_envs=4, device="cpu")
     g = torch.Generator().manual_seed(0)
-    policy = DiffusionPolicy(8, 11 + EMB, K, generator=g)
+    policy = DiffusionPolicy(8, 11 + EMB, K, device="cpu", generator=g)
     state, obs = env.reset()
     state = state._replace(t=torch.tensor([98, 0, 10, 50],
                                           dtype=torch.int32))

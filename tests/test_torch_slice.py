@@ -47,7 +47,7 @@ def test_two_control_steps_match_jax():
     key = jax.random.PRNGKey(0)
     params = actor.init(key, jnp.zeros((1, 8)), jnp.zeros((1,)),
                         jnp.zeros((1, 29 + EMB)))
-    policy = load_diffusion(DiffusionPolicy(8, 29 + EMB, K),
+    policy = load_diffusion(DiffusionPolicy(8, 29 + EMB, K, device="cpu"),
                             jax.tree.map(np.asarray, params))
     table = np.asarray(jax.random.normal(jax.random.PRNGKey(1), (11, EMB)))
 
@@ -98,7 +98,7 @@ def test_collect_records_and_auto_reset():
     whose episode ends inside the window restarts its clock."""
     env = make("antmaze-v1", num_envs=4, random_init=True, device="cpu")
     g = torch.Generator().manual_seed(0)
-    policy = DiffusionPolicy(8, 29 + EMB, K, generator=g)
+    policy = DiffusionPolicy(8, 29 + EMB, K, device="cpu", generator=g)
     state, obs = env.reset()
     state = state._replace(t=torch.tensor([498, 0, 10, 100],
                                           dtype=torch.int32))
@@ -132,7 +132,7 @@ def test_port_runs_without_jax():
         "                      ('PandaDrawerMultiJoints-v3', 11)):\n"
         "    env = make(name, num_envs=2, device='cpu')\n"
         "    s, o = env.reset()\n"
-        "    pol = DiffusionPolicy(8, obs_dim + 5, 5)\n"
+        "    pol = DiffusionPolicy(8, obs_dim + 5, 5, device='cpu')\n"
         "    collect(env, pol, s, o, 1, 0.5, torch.zeros(11, 5), 0, .05, .6)\n"
         "bad = sorted(m for m in ('jax', 'jaxlib', 'flax', 'ddiffpg_tpu')\n"
         "             if m in sys.modules)\n"
