@@ -10,8 +10,11 @@ to its plain PyTorch version on the card, drives DDiffPG's collect path at
 on antmaze-v1, PandaDrawerMultiJoints-v3 and PandaReachJoints-v3, and
 probes the goals. A collect step and its parts are timed on the host clock
 with a synchronize around each call, and, after every timed phase, read on
-the device from torch.profiler windows (busy time and idle share). It
-prints one line per phase, then a JSON line
+the device from torch.profiler windows (busy time and idle share). Then it
+trains: stock DDiffPG on antmaze-v1 at 1024 envs (warm-up, timed train
+iterations through the kernel, their host split and device time, three
+live groups, one update pass on the card against the CPU). It prints one
+line per phase, a JSON line `{"train": {...}}`, a JSON line
 `{"kernels": [...]}`, the card's name and power limit as nvidia-smi gives
 them, and last `{"ok": true, "device": {...}}`. It exits non-zero, printing
 no result, when there is no CUDA card, when the port cannot be imported, or
@@ -32,8 +35,9 @@ import torch
 import torch.profiler
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from ddiffpg_tpu_torch.agents import make_agent
 from ddiffpg_tpu_torch.agents.ddiffpg import collect, explore_actions
-from ddiffpg_tpu_torch.config import Config
+from ddiffpg_tpu_torch.config import Config, algo_preset, preprocess
 from ddiffpg_tpu_torch.envs import make
 from ddiffpg_tpu_torch.envs.antmaze import AntMazeEnv
 from ddiffpg_tpu_torch.envs.base import VecEnv
@@ -47,6 +51,7 @@ from ddiffpg_tpu_torch.physics.substep import (SubstepConstants,
                                                substep_reference)
 from ddiffpg_tpu_torch.physics.substep_cuda import (SubstepKernel, build,
                                                     build_all)
+from ddiffpg_tpu_torch.replay import episodic as ep
 
 NUM_ENVS = 4096          # bench.py's headline cell
 EVAL_ENVS = 20           # the eval batch: checks the kernel's tail masking
@@ -67,6 +72,21 @@ PANDA_TASKS = ("Reach", "PegInsertion", "DrawerMulti", "Cabinet")
 # (2.06e-3 measured on Cabinet, one env of 4096, on an H100)
 TOL = {1: (5e-6, 5e-5), 10: (5e-5, 5e-4)}
 PANDA_TOL = {1: (1e-5, 2e-4), 20: (1e-4, 5e-3)}
+TRAIN_ENVS = 1024        # bench.py:26's train-iteration cell
+TRAIN_ITERS = 10         # timed train iterations, after 2 untimed
+SPLIT_REPS = 5           # calls per part of the host split (median)
+TRAIN_GROUPS = 3         # live groups of the G > 1 check
+# one update pass on the card against the CPU, from one state with the same
+# draws (4096 samples): float32 GEMMs summed in another order feed one Adam
+# step of the parameters (3e-8 and 7e-8 seen on an H100). The action
+# gradient's 20 Adam steps of lr 0.03 turn an action's near-zero gradient,
+# whose sign the summation order can flip, into a whole step either way:
+# one action may end up to 2 lr apart (1.75e-2 seen), while the mean over
+# the moved entries stays small
+CARD_CPU_TOL = {"critic rows (max)": 1e-4, "critic targets (max)": 1e-4,
+                "actor (max)": 1e-4, "target actions (max)": 0.06,
+                "target actions (mean over the moved)": 1e-4,
+                "logs (max relative)": 1e-3}
 # one H100 SXM (NVIDIA's data sheet): float32 outside the tensor cores, HBM
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
@@ -421,6 +441,250 @@ def goal_probe(env, set_qpos, phase: str, where: str):
         f"{got[2]}, t {got[3]}")
 
 
+def replay_add_bytes(E: int, L: int, D: int, A: int, G: int, NG: int = 1):
+    """Bytes one `replay.episodic.add` moves, counted from the shapes
+    (float32 4 bytes, bools 1), each input read once and each output
+    written once: (an env step with no finishing env, the extra per
+    finishing env, an env step in the JAX package's formulation, which
+    rewrites E slot rows of every table and re-selects the whole in-flight
+    tables). E envs, episodes of L steps, obs D, action A, G group rows of
+    target actions, NG goal anchors."""
+    f = 4
+    row = ((L + 1) * D + L * A + L) * f + L      # obs, action, reward, done
+    slot = row + 3 * f + NG * f                  # + length, success, id
+    step = E * ((2 * D + A + 1 + NG + 1) * f + 2     # the inputs
+                + (2 * D + A + 1 + 2 * NG + 2) * f + 1)  # in-flight rows
+    finisher = (row + slot + G * L * A * f + L * A * f  # read, slot, table
+                + row + f + NG * f)              # in-flight rows zeroed
+    jax_step = step + E * (2 * slot + 2 * G * L * A * f + row + L * A * f) \
+        + 2 * E * (row + f + NG * f)
+    return step, finisher, jax_step
+
+
+def train_config() -> Config:
+    """The stock DDiffPG config on antmaze-v1 (`algo_preset` then
+    `preprocess`), at TRAIN_ENVS envs, seed 0."""
+    cfg = Config(algo=algo_preset("ddiffpg")).override(
+        **{"env.name": "antmaze-v1"})
+    return preprocess(cfg).override(num_envs=TRAIN_ENVS, seed=0)
+
+
+def to_device(x, device):
+    """Tensors, and tuples of them, on `device`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if x is None:
+        return None
+    return type(x)(*(to_device(v, device) for v in x))
+
+
+def check_logs(logs: dict, what: str):
+    bad = [k for k, v in logs.items() if not bool(torch.isfinite(v))]
+    if bad:
+        raise RuntimeError(f"{what}: non-finite logs {bad}")
+
+
+def critic_rows(ts) -> list:
+    """Copies of the stacked critics, targets and their adam states."""
+    return [x.detach().clone() for x in
+            ts.critics.params() + ts.critic_targets.params()
+            + ts.critic_opts.mu + ts.critic_opts.nu
+            + [ts.critic_opts.count]]
+
+
+def card_vs_cpu(agent, ts, cfg, G: int):
+    """One update pass on the card and on the CPU from copies of one state
+    with the same draws; the largest differences, each against its bound
+    in CARD_CPU_TOL."""
+    cpu_env = make("antmaze-v1", num_envs=agent.env.num_envs,
+                   random_init=True, device="cpu")
+    cpu_agent = make_agent("DDiffPG", cpu_env, cfg, device="cpu")
+    cpu_agent.num_groups = agent.num_groups = G
+    draws = agent.draw_update(ts, G)
+    cpu_ts = ts.to("cpu")
+    table = ts.replay.target_action.clone()
+    ts, logs = agent.update_once(ts, G, draws)
+    t0 = time.time()
+    cpu_ts, cpu_logs = cpu_agent.update_once(cpu_ts, G,
+                                             to_device(draws, "cpu"))
+    cpu_s = time.time() - t0
+    def diff(xs, ys):
+        return max(float((x.detach().cpu() - y.detach()).abs().max())
+                   for x, y in zip(xs, ys))
+
+    got = {
+        "critic rows (max)": diff([p[:G] for p in ts.critics.params()],
+                            [p[:G] for p in cpu_ts.critics.params()]),
+        "critic targets (max)": diff(
+            [p[:G] for p in ts.critic_targets.params()],
+            [p[:G] for p in cpu_ts.critic_targets.params()]),
+        "actor (max)": diff(list(ts.actor.parameters()),
+                      list(cpu_ts.actor.parameters())),
+        "target actions (max)": diff([ts.replay.target_action],
+                               [cpu_ts.replay.target_action]),
+        "target actions (mean over the moved)": float(
+            (ts.replay.target_action - cpu_ts.replay.target_action.to(
+                table.device)).abs()[ts.replay.target_action != table]
+            .mean()),
+        "logs (max relative)": max(
+            abs(float(logs[k]) - float(cpu_logs[k]))
+            / max(abs(float(cpu_logs[k])), 1e-6) for k in logs)}
+    for k, v in got.items():
+        ok = v <= CARD_CPU_TOL[k]
+        log("9 train", f"card vs CPU, one update pass at G={G}: {k} "
+            f"|diff| {v:.3e} (bound {CARD_CPU_TOL[k]:g}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"card and CPU disagree on {k}")
+    log("9 train", f"the CPU's update pass took {cpu_s:.1f} s")
+    return ts, got
+
+
+def train_phase(smi: str):
+    """Stock DDiffPG on antmaze-v1 at TRAIN_ENVS envs: warm-up, timed
+    train iterations (the kernel's launches counted), the host split of an
+    iteration and of an update pass, the device time of an iteration from
+    a profiler window, then three live groups with rows >= 3 untouched and
+    one update pass on the card against the CPU (neither timed). Returns
+    (the train record, the kernel's launches in the timed window)."""
+    cfg = train_config()
+    torch.cuda.reset_peak_memory_stats()
+    env = make("antmaze-v1", num_envs=TRAIN_ENVS,
+               random_init=cfg.env.random_init, device="cuda", seed=0)
+    ant: AntMazeEnv = env.env
+    agent = make_agent("DDiffPG", env, cfg)
+    t0 = time.time()
+    ts = agent.warmup(agent.init())
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    L = env.max_episode_length
+    full = int((ts.replay.length == L).sum())
+    stored = int((ts.replay.traj_id >= 0).sum())
+    log("9 train", f"init + warm-up ({cfg.algo.warm_up} random steps x "
+        f"{TRAIN_ENVS} envs): {warm_s:.2f} s; {stored} trajectories stored, "
+        f"{full} of length {L} [{smi}]")
+    step, fin, jax_step = replay_add_bytes(
+        TRAIN_ENVS, L, env.obs_dim, env.action_dim, agent.G_max,
+        ts.replay.frontier.shape[1])
+    log("9 train", f"replay add, bytes from the shapes: {step:,} an env step "
+        f"without a finisher, {fin:,} more per finishing env; the JAX "
+        f"formulation {jax_step:,} an env step")
+    if full != TRAIN_ENVS or stored != TRAIN_ENVS:
+        raise RuntimeError("warm-up did not flush every env's episode")
+
+    spi = TRAIN_ENVS * cfg.algo.horizon_len
+    steps = int(ts.global_step)
+    for _ in range(2):
+        ts, logs = agent.train_iter(ts, steps)
+        steps += spi
+    torch.cuda.synchronize()
+    ant.kernel.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_ITERS):
+        ts, logs = agent.train_iter(ts, steps)
+        steps += spi
+    torch.cuda.synchronize()
+    s_iter = (time.perf_counter() - t0) / TRAIN_ITERS
+    launches = ant.kernel.launches
+    if launches != cfg.algo.horizon_len * TRAIN_ITERS:
+        raise RuntimeError(f"train: the kernel launched {launches} times in "
+                           f"{TRAIN_ITERS} iterations")
+    check_logs(logs, "train")
+    log("9 train", f"{TRAIN_ITERS} train iterations (horizon "
+        f"{cfg.algo.horizon_len}, {cfg.algo.update_times} update passes, "
+        f"batch {cfg.algo.batch_size}): {s_iter:.4f} s per iteration, "
+        f"{spi / s_iter:.0f} env steps/s, kernel launches {launches} "
+        f"[{smi}]")
+    log("9 train", "logs: " + ", ".join(f"{k} {float(v):.4g}"
+                                        for k, v in logs.items()))
+    peak = torch.cuda.max_memory_allocated()
+
+    state = [ts]
+    p = agent.get_exp_p(steps)
+
+    def env_step():
+        state[0] = agent._env_step(state[0], p, random=False)
+
+    def update_passes():
+        for _ in range(cfg.algo.update_times):
+            state[0], _ = agent.update_once(state[0])
+
+    def train_iter():
+        state[0], _ = agent.train_iter(state[0], steps)
+
+    host = host_ms({"train iteration": train_iter, "env step": env_step,
+                    f"{cfg.algo.update_times} update passes": update_passes},
+                   SPLIT_REPS)
+    parts = {}
+    for _ in range(SPLIT_REPS + 1):
+        torch.cuda.synchronize()
+        last = [time.perf_counter()]
+
+        def mark(name):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            parts.setdefault(name, []).append((now - last[0]) * 1e3)
+            last[0] = now
+
+        state[0], _ = agent.update_once(state[0], mark=mark)
+    parts = {k: statistics.median(v[1:]) for k, v in parts.items()}
+    log("9 train", f"host ms (median of {SPLIT_REPS}, each call between "
+        "synchronizes): " + ", ".join(f"{k} {v:.2f}" for k, v in host.items())
+        + "; one update pass by part: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in parts.items()) + f" [{smi}]")
+
+    # the profiler last, after every timed call
+    dev = device_ms(train_iter, 3)
+    if dev is None:
+        busy = idle = None
+        log("9 train", "train iteration on the device: not measured (the "
+            "profiler saw no device activity)")
+    else:
+        busy, idle = dev[0], 1 - dev[0] / host["train iteration"]
+        log("9 train", f"train iteration on the device (torch.profiler, 3 "
+            f"iterations): {dev[2]:.0f} device activities, busy "
+            f"{busy:.2f} ms, of which substep_kernel {dev[1]:.3f} ms; idle "
+            f"{idle:.1%} of the host time; peak memory "
+            f"{peak / 2**20:.0f} MiB [{smi}]")
+
+    # G = 3: hand-made groups, parents [0, 0, -1, ...]
+    ts = state[0]
+    S, G = ts.replay.capacity, TRAIN_GROUPS
+    valid = ts.replay.length > 0
+    odd = torch.arange(S, device="cuda") % 2 == 1
+    mask = torch.zeros((agent.G_max, S), dtype=torch.bool, device="cuda")
+    mask[0], mask[1], mask[2] = valid, valid & ~odd, valid & odd
+    ep.set_groups(ts.replay, mask, [0, 0] + [-1] * (agent.G_max - 2))
+    agent.num_groups = G
+    before = critic_rows(ts)
+    for _ in range(2):
+        ts, logs = agent.train_iter(ts, steps)
+        steps += spi
+        check_logs(logs, f"train at G={G}")
+    after = critic_rows(ts)
+    if not all(torch.equal(x[G:], y[G:]) for x, y in zip(after, before)):
+        raise RuntimeError(f"train at G={G}: rows >= {G} moved")
+    if any(torch.equal(x[1:G], y[1:G]) for x, y in zip(after, before)):
+        raise RuntimeError(f"train at G={G}: rows 1..{G - 1} did not move")
+    log("9 train", f"G={G}: two train iterations, logs finite, critic rows "
+        f"{G}..{agent.G_max - 1} (params, targets, adam) bitwise unchanged, "
+        f"rows 1..{G - 1} moved; critic_loss "
+        f"{float(logs['train/critic_loss']):.4g}")
+    _, card_cpu = card_vs_cpu(agent, ts, cfg, G)
+
+    record = {
+        "env": "antmaze-v1", "num_envs": TRAIN_ENVS,
+        "batch_size": cfg.algo.batch_size,
+        "update_times": cfg.algo.update_times,
+        "action_gradient_steps": cfg.diffusion.update_times,
+        "warmup_s": warm_s, "s_per_train_iter": s_iter,
+        "env_steps_per_s": spi / s_iter, "kernel_launches": launches,
+        "host_ms": host, "update_pass_ms": parts,
+        "device_busy_ms_per_iter": busy, "device_idle_share": idle,
+        "peak_memory_bytes": peak, "card_vs_cpu": card_cpu, "card": smi}
+    return record, launches
+
+
 def kernel_entry(name: str, launches: int, err: float, ms: float,
                  plain_ms: float, bound) -> dict:
     return {"name": name, "route": "cuda",
@@ -633,10 +897,14 @@ def main() -> int:
     device_split(*ant_split, "antmaze-v1", smi)
     device_split(*drawer_split, "PandaDrawerMultiJoints-v3", smi)
 
-    # ---------------------------------------------------------- 9. result
+    # ------------------------------------------- 9. DDiffPG train iteration
+    train, train_launches = train_phase(smi)
+
+    # ---------------------------------------------------------- 10. result
+    print(json.dumps({"train": train}))
     print(json.dumps({"kernels": [
-        kernel_entry("substep_ant", ant_launches, ant_err, ant_ms,
-                     ant_plain_ms, ant_bound),
+        kernel_entry("substep_ant", ant_launches + train_launches, ant_err,
+                     ant_ms, ant_plain_ms, ant_bound),
         kernel_entry("substep_panda_drawermulti", drawer_launches,
                      panda_err["DrawerMulti"], panda_ms["DrawerMulti"],
                      panda_plain_ms["DrawerMulti"],

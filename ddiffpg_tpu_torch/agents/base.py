@@ -1,0 +1,145 @@
+"""Shared agent machinery: episode trackers, target-policy smoothing, the
+C51 critic loss and the DIPO action gradient.
+
+Counterpart of `ddiffpg_tpu/agents/base.py` (:92-232). The optimizer chains
+(`make_optimizer`, `apply_update`) are in `ops/optim.py`. Functions that
+the JAX package vmaps over the group axis take `[G, b, ...]` tensors here.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ddiffpg_tpu_torch.ops import distributional, optim
+from ddiffpg_tpu_torch.ops.noise import add_normal_noise
+
+
+@torch.no_grad()
+def soft_update(target, current, tau: float):
+    """target <- current * tau + target * (1 - tau), in place, tensor by
+    tensor (the JAX package's `c * tau + t * (1 - tau)`)."""
+    for t, c in zip(target, current):
+        t.copy_(c * tau + t * (1.0 - tau))
+
+
+class Tracker(NamedTuple):
+    """Fixed-window ring of finished-episode values (the reference's
+    zero-initialised deque: the mean counts zeros until full)."""
+    buf: torch.Tensor   # [W] float32
+    ptr: torch.Tensor   # [1] int32
+
+    @staticmethod
+    def create(window: int, device="cuda") -> "Tracker":
+        return Tracker(buf=torch.zeros(window, device=device),
+                       ptr=torch.zeros(1, dtype=torch.int32, device=device))
+
+    def mean(self):
+        return self.buf.mean()
+
+
+def tracker_push_masked(tr: Tracker, values, mask) -> Tracker:
+    """Push values[mask] in ring order; values [E], mask [E] bool. A gather
+    over window positions, as the JAX package (the first env wins a
+    position that several land on)."""
+    W = tr.buf.shape[0]
+    rank = torch.cumsum(mask.to(torch.int32), 0) - 1
+    pos = (tr.ptr[0] + rank) % W
+    hit = mask[None, :] & (pos[None, :] == torch.arange(
+        W, device=pos.device)[:, None])                     # [W, E]
+    land = hit.any(dim=1)
+    src = torch.argmax(hit.to(torch.int32), dim=1)
+    buf = torch.where(land, values[src], tr.buf)
+    ptr = ((tr.ptr + mask.sum()) % W).to(torch.int32)
+    return Tracker(buf=buf, ptr=ptr)
+
+
+class EpisodeStats(NamedTuple):
+    """Running per-env return and length, and finished-episode windows
+    (the reference's update_tracker, ac_base.py:69-81)."""
+    current_returns: torch.Tensor
+    current_lengths: torch.Tensor
+    return_tracker: Tracker
+    step_tracker: Tracker
+
+    @staticmethod
+    def create(num_envs: int, window: int, device="cuda") -> "EpisodeStats":
+        return EpisodeStats(
+            current_returns=torch.zeros(num_envs, device=device),
+            current_lengths=torch.zeros(num_envs, device=device),
+            return_tracker=Tracker.create(window, device),
+            step_tracker=Tracker.create(window, device))
+
+
+def update_stats(st: EpisodeStats, reward, done) -> EpisodeStats:
+    cr = st.current_returns + reward
+    cl = st.current_lengths + 1.0
+    done = done.to(torch.bool)
+    return EpisodeStats(
+        current_returns=torch.where(done, 0.0, cr),
+        current_lengths=torch.where(done, 0.0, cl),
+        return_tracker=tracker_push_masked(st.return_tracker, cr, done),
+        step_tracker=tracker_push_masked(st.step_tracker, cl, done))
+
+
+class TargetDraws(NamedTuple):
+    """The standard-normal draws of `tgt_policy_action` for B rows."""
+    x_init: torch.Tensor      # [B, A]
+    step_noise: torch.Tensor  # [K, B, A]
+    noise: torch.Tensor       # [B, A]
+
+
+@torch.no_grad()
+def tgt_policy_action(policy, obs, noise_cfg, *,
+                      generator: torch.Generator | None = None,
+                      draws: TargetDraws | None = None):
+    """Target-policy smoothing (td3.py:75-84): the policy's action plus
+    N(0, tgt_pol_std) noise clipped to +-tgt_pol_noise_bound, in [-1, 1]."""
+    d = draws or TargetDraws(None, None, None)
+    actions = policy.act(obs, generator=generator, x_init=d.x_init,
+                         noise=d.step_noise)
+    b = noise_cfg.tgt_pol_noise_bound
+    return add_normal_noise(actions, noise_cfg.tgt_pol_std,
+                            noise_bounds=(-b, b), out_bounds=(-1.0, 1.0),
+                            generator=generator, noise=d.noise)
+
+
+def distributional_critic_loss(critic, target, z, obs, action, reward,
+                               next_obs, next_actions, done, gamma: float,
+                               v_min, v_max, num_atoms: int):
+    """Per-group C51 double-critic BCE with the projected, elementwise-min
+    target (the reference's update_critic, ddiffpg.py:322-351): [G] losses
+    for groups 0..G-1 of the stacked `critic`; `target` is its target
+    stack. z [G, 1, A], v_min/v_max [G, 1, 1]; the batch is [G, b, ...]."""
+    with torch.no_grad():
+        q1_t, q2_t = target(next_obs, next_actions)
+        proj = lambda q: distributional.projection(  # noqa: E731
+            q, reward, done, gamma, v_min, v_max, num_atoms, z)
+        target_q = torch.minimum(proj(q1_t), proj(q2_t))
+    q1, q2 = critic(obs, action)
+    bce = lambda q: distributional.binary_cross_entropy(  # noqa: E731
+        q, target_q, dim=(1, 2))
+    return bce(q1) + bce(q2)
+
+
+def action_gradient(q_min_fn, action, n_steps: int, lr: float,
+                    max_grad_norm: Optional[float] = 1.0):
+    """DIPO action gradient (the reference's update_target_action,
+    ddiffpg.py:358-373): n Adam(eps 1e-5) ascent steps on mean Qmin per
+    group, the actions kept in +-(1 - 1e-5). action [G, b, A];
+    q_min_fn(a) -> [G, b]. Each group is its own problem (its own global
+    norm and step count); only the actions are differentiated, so the
+    critics collect no gradient."""
+    lim = 1.0 - 1e-5
+    spec = optim.make_optimizer(lr, max_grad_norm, weight_decay=False)
+    a = torch.clamp(action, -lim, lim).detach()
+    state = optim.adam_init([a], rows=1)
+    for _ in range(n_steps):
+        a.requires_grad_(True)
+        loss = -q_min_fn(a).mean(dim=1).sum()
+        (g,) = torch.autograd.grad(loss, [a])
+        a = a.detach()
+        optim.adam_step([a], [g], state, spec)
+        a.clamp_(-lim, lim)
+    return a

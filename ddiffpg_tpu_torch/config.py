@@ -1,16 +1,34 @@
-"""Typed configuration tree (the dataclasses only).
+"""Typed configuration tree.
 
 Copy of the dataclasses of `ddiffpg_tpu/config.py` with field-identical
-defaults, so that the port builds its models and noise schedules from the
-same stock configuration without importing the JAX package. The YAML
-loader, the per-algorithm presets, `preprocess` and the override helpers
-are not copied yet.
+defaults, its per-algorithm presets (`algo_preset`), its per-env
+`preprocess` and the dotted override helper, so that the port builds its
+agent from the same stock configuration without importing the JAX
+package. The YAML loader is not copied yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import warnings
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Any, Optional
+
+
+def _replace_nested(obj, dotted: str, value):
+    """Set `a.b.c` on nested dataclasses, returning a new instance."""
+    head, _, rest = dotted.partition(".")
+    if not hasattr(obj, head):
+        raise KeyError(f"unknown config field: {head!r} on "
+                       f"{type(obj).__name__}")
+    if rest:
+        child = _replace_nested(getattr(obj, head), rest, value)
+        return dataclasses.replace(obj, **{head: child})
+    cur = getattr(obj, head)
+    if cur is not None and not isinstance(cur, (dict, list)) \
+            and value is not None and not isinstance(value, type(cur)):
+        value = type(cur)(value)
+    return dataclasses.replace(obj, **{head: value})
 
 
 @dataclass(frozen=True)
@@ -190,3 +208,75 @@ class Config:
     device: str = "auto"         # 'auto' | 'cpu' | 'tpu' (the JAX package's choice)
     # numerics
     param_dtype: str = "float32"
+
+    def override(self, **dotted: Any) -> "Config":
+        """`cfg.override(**{"algo.batch_size": 48})`: a new Config with the
+        dotted fields replaced (values cast to the field's type)."""
+        cfg = self
+        for k, v in dotted.items():
+            cfg = _replace_nested(cfg, k, v)
+        return cfg
+
+
+def algo_preset(name: str) -> AlgoConfig:
+    """Per-algorithm presets (the reference's cfg/algo/*.yaml)."""
+    name = name.upper().replace("AGENT", "")
+    if name == "DDIFFPG":
+        return AlgoConfig()
+    if name in ("DIPO", "DIFFQ", "TD3"):
+        return AlgoConfig(name={"DIPO": "DIPO", "DIFFQ": "DiffQ",
+                                "TD3": "TD3"}[name],
+                          memory_size=1_000_000, warm_up=32)
+    if name == "SAC":
+        return AlgoConfig(
+            name="SAC", memory_size=1_000_000, warm_up=32,
+            act_class="TanhDiagGaussianMLPPolicy", cri_class="DoubleQ")
+    raise ValueError(f"unknown algo {name!r}")
+
+
+_MAZE_PRESETS = {   # env name -> (resolution, max_step, cluster_threshold)
+    "antmaze-v1": (255, 3_000_000, 50.0),
+    "antmaze-v2": (357, 3_000_000, 70.0),
+    "antmaze-v3": (459, 4_000_000, 70.0),
+    "antmaze-v4": (357, 5_000_000, 50.0),
+}
+
+
+def preprocess(cfg: Config, if_ddiffpg: bool = True) -> Config:
+    """Per-env overrides, the same table as `ddiffpg_tpu/config.py:
+    preprocess` (the reference's utils/common.py:36-62), with its dense
+    C51 support and its warnings."""
+    name = cfg.env.name
+    if name in _MAZE_PRESETS:
+        res, max_step, threshold = _MAZE_PRESETS[name]
+        over = {"env.resolution": res, "max_step": max_step}
+        if name == "antmaze-v1":
+            over["env.random_init"] = True
+        if if_ddiffpg:
+            over["algo.cluster_threshold"] = threshold
+        cfg = cfg.override(**over)
+    else:
+        cfg = cfg.override(**{"algo.use_downsampling": True,
+                              "max_step": 3_000_000})
+
+    # a dense reward is <= 0, so the [0, 5] support would collapse every
+    # projected target onto the 0-atom; the support follows the reward type
+    dense = ("Dense" in name) or (("maze" in name)
+                                  and cfg.env.reward_type == "dense")
+    if dense:
+        lo = -50.0 if name.startswith("Panda") else -2500.0
+        cfg = cfg.override(**{"algo.v_min": lo, "algo.v_max": 0.0})
+
+    if if_ddiffpg and cfg.algo.frontier_keep <= 0 and (
+            cfg.algo.frontier_frac > 0 or cfg.algo.frontier_frac_near > 0):
+        warnings.warn(
+            "algo.frontier_frac/frontier_frac_near set with "
+            "algo.frontier_keep=0: the frontier keep-set is empty, so the "
+            "frontier batch share silently no-ops. Set frontier_keep > 0.",
+            stacklevel=2)
+    if if_ddiffpg and cfg.algo.obs_norm:
+        warnings.warn(
+            "algo.obs_norm=true with DDiffPG: actions/eval use normalized "
+            "observations but updates train on raw observations (reference "
+            "semantics). Learning may silently degrade.", stacklevel=2)
+    return cfg

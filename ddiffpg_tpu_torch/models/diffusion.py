@@ -6,8 +6,8 @@ is a sinusoidal time embedding -> 256->1024->256 Mish time-MLP, then a
 reverse denoise (ops/ddpm.py) is a Python loop of plain matrix products.
 Layers are initialised with flax `Dense`'s law (lecun-normal kernel, zero
 bias), so a freshly made policy has the JAX package's weight statistics;
-`utils/convert.py` loads the JAX package's weights exactly. The training
-loss comes with the update pass.
+`utils/convert.py` loads the JAX package's weights exactly. `loss` is the
+DDPM epsilon-prediction loss that distils the actor in the update pass.
 """
 
 from __future__ import annotations
@@ -81,7 +81,10 @@ class DiffusionNet(nn.Module):
 
 class DiffusionPolicy(nn.Module):
     """K-step DDPM policy head: `forward` is the eps prediction, `act` the
-    K-step reverse denoise to an action in [-1, 1]."""
+    K-step reverse denoise to an action in [-1, 1], `loss` the training
+    loss. The schedule's tables are non-persistent buffers, so `.to()` and
+    `copy.deepcopy` carry them and the state dict holds the weights
+    only."""
 
     def __init__(self, action_dim: int, cond_dim: int,
                  diffusion_iter: int = 5, dim: int = 256,
@@ -97,8 +100,16 @@ class DiffusionPolicy(nn.Module):
         self.net = DiffusionNet(action_dim, cond_dim, dim)
         self.net.reset_parameters(generator)
         # first the tables: without a card they raise for device="cuda"
-        self.tables = ddpm.make_tables(diffusion_iter, schedule, device)
+        tables = ddpm.make_tables(diffusion_iter, schedule, device)
+        for name in ("betas", "alphas", "alphas_cumprod"):
+            self.register_buffer(name, getattr(tables, name),
+                                 persistent=False)
         self.to(device)
+
+    @property
+    def tables(self) -> ddpm.DDPMTables:
+        return ddpm.DDPMTables(self.betas, self.alphas, self.alphas_cumprod,
+                               self.diffusion_iter)
 
     def forward(self, x, t, cond):
         return self.net(x, t, cond)
@@ -123,3 +134,22 @@ class DiffusionPolicy(nn.Module):
 
         return ddpm.reverse_scan(self.tables, eps_fn, x_init, noise,
                                  generator)
+
+    def loss(self, cond: torch.Tensor, action: torch.Tensor, *,
+             generator: torch.Generator | None = None,
+             noise: torch.Tensor | None = None,
+             t: torch.Tensor | None = None) -> torch.Tensor:
+        """Epsilon-prediction MSE of the target actions [B, A] given cond
+        [B, C]. `noise` [B, A] (standard normal) and `t` [B] (int in
+        [0, K)) are drawn from `generator` when not given; the net sees t
+        as float32."""
+        B = action.shape[0]
+        if noise is None:
+            noise = torch.randn(action.shape, generator=generator,
+                                device=action.device, dtype=action.dtype)
+        if t is None:
+            t = torch.randint(0, self.diffusion_iter, (B,),
+                              generator=generator, device=action.device)
+        noisy = ddpm.add_noise(self.tables, action, noise, t)
+        eps = self.net(noisy, t.to(torch.float32), cond)
+        return torch.mean((eps - noise) ** 2)

@@ -1,0 +1,130 @@
+"""The critics' and the novelty nets' MLPs.
+
+Counterpart of `ddiffpg_tpu/models/mlp.py`: `MLPNet` (ELU, hidden 512,
+256, 128), `DistributionalDoubleQ` (:114) and `RNDModel` (:194). Layers
+are initialised with flax's laws (lecun-normal kernels for `Dense`,
+orthogonal(sqrt 2) for the RND nets, zero biases), so fresh modules have
+the JAX package's weight statistics; `utils/convert.py` loads its weights
+exactly.
+
+The JAX package keeps one critic per group (the explore group and up to
+`max_modes` behaviour modes) as a `[G_max]` stack of parameter trees that
+`jax.vmap` consumes. Here the stack is explicit: `DistributionalDoubleQ`
+holds every layer as one `[G_max, 2, in, out]` tensor (groups, then the
+heads q1 and q2), and its forward pass runs the first `G` groups' both
+heads as one batched matrix product per layer (`torch.baddbmm` over
+`G * 2` matrices). One backward pass then gives every group's gradient,
+and rows `G..` get none.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ddiffpg_tpu_torch.models.diffusion import lecun_normal_
+
+DEFAULT_HIDDEN = (512, 256, 128)
+
+
+class MLPNet(nn.Module):
+    """ELU MLP in -> hidden... -> out; `dense` in flax's Dense_0.. order.
+    init "lecun" (flax Dense) or "orthogonal" (gain sqrt 2, as RNDModel)."""
+
+    def __init__(self, in_dim: int, out_dim: int,
+                 hidden: Sequence[int] = DEFAULT_HIDDEN,
+                 init: str = "lecun",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        widths = [in_dim, *hidden, out_dim]
+        self.dense = nn.ModuleList(nn.Linear(i, o)
+                                   for i, o in zip(widths, widths[1:]))
+        for layer in self.dense:
+            if init == "lecun":
+                lecun_normal_(layer.weight, generator)
+            elif init == "orthogonal":
+                nn.init.orthogonal_(layer.weight, gain=math.sqrt(2.0),
+                                    generator=generator)
+            else:
+                raise ValueError(f"unknown init {init!r}")
+            nn.init.zeros_(layer.bias)
+
+    def forward(self, x):
+        for layer in self.dense[:-1]:
+            x = F.elu(layer(x))
+        return self.dense[-1](x)
+
+
+class DistributionalDoubleQ(nn.Module):
+    """C51 double critics for `rows` groups: two softmax heads over
+    `num_atoms` atoms on [obs, action]. Every row starts as a copy of
+    row 0 (the JAX agent's `init` broadcasts the explore critic)."""
+
+    def __init__(self, obs_dim: int, action_dim: int, rows: int,
+                 num_atoms: int = 51, hidden: Sequence[int] = DEFAULT_HIDDEN,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        heads = [MLPNet(obs_dim + action_dim, num_atoms, hidden,
+                        generator=generator).dense for _ in range(2)]
+
+        def stack(xs):      # [rows, 2, ...], every row the same
+            x = torch.stack([t.detach() for t in xs])
+            return nn.Parameter(x[None].repeat(rows, *(1,) * x.dim()))
+
+        n = len(heads[0])
+        self.weight = nn.ParameterList(
+            stack([h[k].weight.T for h in heads]) for k in range(n))
+        self.bias = nn.ParameterList(
+            stack([h[k].bias for h in heads]) for k in range(n))
+
+    def params(self) -> list:
+        """Parameters in the order the optimizer state keeps them."""
+        return [*self.weight, *self.bias]
+
+    def forward(self, obs: torch.Tensor, action: torch.Tensor):
+        """obs [G, b, D], action [G, b, A] for groups 0..G-1 ->
+        (q1, q2), each [G, b, num_atoms] probabilities."""
+        G, b = obs.shape[:2]
+        x = torch.cat([obs, action], dim=-1)
+        h = x[:, None].expand(G, 2, b, x.shape[-1]).reshape(G * 2, b, -1)
+        last = len(self.weight) - 1
+        for i, (w, bias) in enumerate(zip(self.weight, self.bias)):
+            h = torch.baddbmm(bias[:G].reshape(G * 2, 1, -1), h,
+                              w[:G].reshape(G * 2, *w.shape[2:]))
+            if i < last:
+                h = F.elu(h)
+        q = torch.softmax(h.reshape(G, 2, b, -1), dim=-1)
+        return q[:, 0], q[:, 1]
+
+
+def q_min(critic: DistributionalDoubleQ, z: torch.Tensor, obs, action):
+    """min over the two heads of the expected value on atoms z [G, 1, A]:
+    [G, b]."""
+    q1, q2 = critic(obs, action)
+    return torch.minimum((q1 * z).sum(-1), (q2 * z).sum(-1))
+
+
+class RNDModel(nn.Module):
+    """Random-network distillation: a trained predictor and a target net,
+    both in -> 512 -> 256 -> 128 -> feat_dim with ELU, orthogonal(sqrt 2)
+    init and zero bias. The target's output is detached; its parameters
+    still sit in the optimizer (adamw decays them, as in the JAX
+    package)."""
+
+    def __init__(self, in_dim: int, feat_dim: int = 128,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.pred = MLPNet(in_dim, feat_dim, init="orthogonal",
+                           generator=generator)
+        self.tgt = MLPNet(in_dim, feat_dim, init="orthogonal",
+                          generator=generator)
+
+    def params(self) -> list:
+        return list(self.parameters())
+
+    def forward(self, x):
+        return self.pred(x), self.tgt(x).detach()

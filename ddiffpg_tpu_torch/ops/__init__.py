@@ -1,1 +1,2 @@
-"""Small tensor ops of the acting path: DDPM, mode embeddings, noise."""
+"""Tensor ops of acting and of the update pass: DDPM, mode embeddings,
+noise, the optax chains, the C51 projection, running stats, posenc."""

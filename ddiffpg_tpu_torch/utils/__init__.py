@@ -1,1 +1,1 @@
-"""Helpers of the port."""
+"""Helpers of the port: maze coverage, JAX-package conversion."""

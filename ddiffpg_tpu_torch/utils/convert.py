@@ -1,9 +1,11 @@
-"""The JAX package's parameters, as numpy arrays, into the port's modules.
+"""The JAX package's parameters and train state, as numpy, into the port.
 
-Takes numpy only (convert a flax tree with `jax.tree.map(np.asarray, ...)`
-where JAX is at hand), so loading needs no JAX.
-
-Flax `Dense` kernels are [in, out]; `nn.Linear.weight` is [out, in].
+Takes numpy only (convert a JAX tree with `jax.tree.map(np.asarray, ...)`
+where JAX is at hand), so loading needs no JAX. Flax `Dense` kernels are
+[in, out]; `nn.Linear.weight` is [out, in], while the stacked critics keep
+flax's [in, out] with leading [G_max, 2] (group, head) axes. optax's
+`ScaleByAdamState` (mu, nu, count) is found by its fields wherever it sits
+in a chain's state tuple.
 """
 
 from __future__ import annotations
@@ -14,21 +16,99 @@ import numpy as np
 import torch
 
 N_DENSE = 6
+RND_LAYERS = ("512", "256", "128", "out")
+
+
+def _t(x, dtype=None, device="cpu") -> torch.Tensor:
+    a = np.array(x, dtype=dtype, copy=True)
+    return torch.from_numpy(a).to(device)
+
+
+def _params(tree: Mapping) -> Mapping:
+    return tree.get("params", tree)
+
+
+def actor_arrays(flax_params: Mapping) -> list:
+    """A `DiffusionPolicy` tree ({'params': {'net': {'Dense_0'..}}}, the
+    'params' level optional) -> arrays in the order of the port's
+    `DiffusionPolicy.parameters()`."""
+    net = _params(flax_params)["net"]
+    out = []
+    for i in range(N_DENSE):
+        out += [np.asarray(net[f"Dense_{i}"]["kernel"], np.float32).T,
+                np.asarray(net[f"Dense_{i}"]["bias"], np.float32)]
+    return out
+
+
+def critic_arrays(flax_params: Mapping) -> list:
+    """A stacked `DistributionalDoubleQ` tree (leaves [G_max, ...]) ->
+    arrays in the order of `models.mlp.DistributionalDoubleQ.params()`:
+    the weights [G_max, 2, in, out], then the biases [G_max, 2, out]."""
+    p = _params(flax_params)
+    n = len(p["q1"])
+    def stack(leaf):
+        return [np.stack([np.asarray(p[h][f"Dense_{i}"][leaf], np.float32)
+                          for h in ("q1", "q2")], axis=1) for i in range(n)]
+
+    return stack("kernel") + stack("bias")
+
+
+def rnd_arrays(flax_params: Mapping) -> list:
+    """An `RNDModel` tree -> arrays in the order of the port's
+    `RNDModel.params()` (predictor layers, then target layers)."""
+    p = _params(flax_params)
+    out = []
+    for branch in ("pred", "tgt"):
+        for w in RND_LAYERS:
+            layer = p[f"{branch}_{w}"]
+            out += [np.asarray(layer["kernel"], np.float32).T,
+                    np.asarray(layer["bias"], np.float32)]
+    return out
+
+
+def find_adam(opt_state):
+    """The ScaleByAdamState inside an optax chain's state."""
+    if all(hasattr(opt_state, f) for f in ("mu", "nu", "count")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for s in opt_state:
+            found = find_adam(s)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state(opt_state, arrays_fn, device="cpu"):
+    """optax state -> the port's `ops.optim.AdamState`, with mu and nu laid
+    out by `arrays_fn` (one of the functions above)."""
+    from ddiffpg_tpu_torch.ops.optim import AdamState
+
+    s = find_adam(opt_state)
+    return AdamState(mu=[_t(x, device=device) for x in arrays_fn(s.mu)],
+                     nu=[_t(x, device=device) for x in arrays_fn(s.nu)],
+                     count=_t(s.count, np.int32, device))
+
+
+@torch.no_grad()
+def load_params(params, arrays):
+    """Copy arrays into the port's parameter tensors, checking shapes."""
+    params = list(params)
+    if len(params) != len(arrays):
+        raise ValueError(f"{len(arrays)} arrays for {len(params)} tensors")
+    for p, a in zip(params, arrays):
+        if tuple(p.shape) != tuple(a.shape):
+            raise ValueError(f"shape {tuple(a.shape)} for {tuple(p.shape)}")
+        p.copy_(torch.from_numpy(np.array(a, copy=True)))
 
 
 def diffusion_state_dict(flax_params: Mapping) -> dict:
-    """A `DiffusionPolicy` flax tree ({'params': {'net': {'Dense_0'..
-    'Dense_5'}}}, the 'params' level optional) -> the state dict of the
-    port's `DiffusionPolicy`."""
-    tree = flax_params.get("params", flax_params)
-    net = tree["net"]
+    """A `DiffusionPolicy` flax tree -> the state dict of the port's
+    `DiffusionPolicy`."""
+    arrays = actor_arrays(flax_params)
     sd = {}
     for i in range(N_DENSE):
-        layer = net[f"Dense_{i}"]
-        kernel = np.asarray(layer["kernel"], np.float32)
-        sd[f"net.dense.{i}.weight"] = torch.from_numpy(kernel.T.copy())
-        sd[f"net.dense.{i}.bias"] = torch.from_numpy(
-            np.asarray(layer["bias"], np.float32).copy())
+        sd[f"net.dense.{i}.weight"] = torch.from_numpy(arrays[2 * i].copy())
+        sd[f"net.dense.{i}.bias"] = torch.from_numpy(arrays[2 * i + 1].copy())
     return sd
 
 
@@ -36,3 +116,65 @@ def load_diffusion(policy: torch.nn.Module, flax_params: Mapping):
     """Copy the JAX package's DiffusionPolicy weights into `policy`."""
     policy.load_state_dict(diffusion_state_dict(flax_params))
     return policy
+
+
+def ddiffpg_state(agent, jstate, env_state=None):
+    """A JAX `DDiffPGState` with numpy leaves -> the port's DDiffPGState
+    for `agent` (an `agents.ddiffpg.AgentDDiffPG`), on the agent's device.
+
+    Carried across: the actor, the stacked critics and targets, the adam
+    states of the actor, the critics (per row) and RND, the embeddings,
+    the intrinsic state, the replay tables, the episode stats, the density
+    grid (its leading device axis dropped), the obs and `global_step`. The
+    JAX env state holds per-env PRNG keys the port has no use for; its
+    qpos, qvel and t are taken unless `env_state` is given.
+    """
+    from ddiffpg_tpu_torch.agents.base import EpisodeStats, Tracker
+    from ddiffpg_tpu_torch.envs.base import EnvState
+    from ddiffpg_tpu_torch.intrinsic import IntrinsicState
+    from ddiffpg_tpu_torch.ops.running_stats import RunningMeanStd
+    from ddiffpg_tpu_torch.replay.episodic import EpisodicReplay
+
+    dev = agent.device
+    ts = agent.init()
+    load_params(ts.actor.parameters(), actor_arrays(jstate.actor_params))
+    load_params(ts.critics.params(), critic_arrays(jstate.critics))
+    load_params(ts.critic_targets.params(),
+                critic_arrays(jstate.critic_targets))
+    ji = jstate.intrinsic
+    net = ts.intrinsic.net
+    load_params(net.params(), rnd_arrays(ji.params))
+    intrinsic = IntrinsicState(
+        net=net, opt_state=adam_state(ji.opt_state, rnd_arrays, dev),
+        rms=RunningMeanStd(*(_t(x, np.float32, dev) for x in ji.rms)),
+        update_step=_t(ji.update_step, np.int32, dev))
+
+    rep = jstate.replay
+    dtypes = {f: ts.replay._asdict()[f].dtype for f in EpisodicReplay._fields}
+    replay = EpisodicReplay(**{
+        f: _t(getattr(rep, f), device=dev).to(dtypes[f])
+        for f in EpisodicReplay._fields})
+
+    def tracker(tr):
+        return Tracker(_t(tr.buf, np.float32, dev), _t(tr.ptr, np.int32, dev))
+
+    st = jstate.stats
+    stats = EpisodeStats(_t(st.current_returns, np.float32, dev),
+                         _t(st.current_lengths, np.float32, dev),
+                         tracker(st.return_tracker), tracker(st.step_tracker))
+    if env_state is None:
+        es = jstate.env_state
+        env_state = EnvState(_t(es.qpos, np.float32, dev),
+                             _t(es.qvel, np.float32, dev),
+                             _t(es.t, np.int32, dev))
+    ts.actor_opt = adam_state(jstate.actor_opt, actor_arrays, dev)
+    ts.critic_opts = adam_state(jstate.critic_opts, critic_arrays, dev)
+    ts.embeddings = _t(jstate.embeddings, np.float32, dev)
+    ts.intrinsic = intrinsic
+    ts.replay = replay
+    ts.env_state = env_state
+    ts.obs = _t(jstate.obs, np.float32, dev)
+    ts.stats = stats
+    ts.global_step = _t(jstate.global_step, np.int64, dev)
+    ts.density_grid = _t(np.asarray(jstate.density_grid)[0], np.int32, dev)
+    return ts

@@ -18,3 +18,27 @@ def test_dataclass_field_identical(name):
     assert [(f.name, f.type) for f in dataclasses.fields(ours)] == \
         [(f.name, f.type) for f in dataclasses.fields(theirs)]
     assert dataclasses.asdict(ours()) == dataclasses.asdict(theirs())
+
+
+@pytest.mark.parametrize("algo", ["ddiffpg", "AgentDIPO", "diffq", "td3",
+                                  "sac"])
+def test_algo_preset_identical(algo):
+    assert dataclasses.asdict(config.algo_preset(algo)) == \
+        dataclasses.asdict(jax_config.algo_preset(algo))
+
+
+@pytest.mark.parametrize("env,reward", [
+    ("antmaze-v1", "sparse"), ("antmaze-v2", "sparse"),
+    ("antmaze-v3", "dense"), ("antmaze-v4", "sparse"),
+    ("PandaReachJoints-v3", "sparse"), ("PandaReachDense-v3", "dense")])
+@pytest.mark.parametrize("ddiffpg", [True, False])
+def test_preprocess_identical(env, reward, ddiffpg):
+    """The per-env overrides and the dense C51 support, as the JAX
+    package's preprocess gives them; overrides cast to the field's type."""
+    over = {"env.name": env, "env.reward_type": reward,
+            "algo.batch_size": 48.0}
+    ours = config.preprocess(config.Config().override(**over), ddiffpg)
+    theirs = jax_config.preprocess(jax_config.Config().override(**over),
+                                   ddiffpg)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    assert isinstance(ours.algo.batch_size, int)

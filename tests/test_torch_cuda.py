@@ -1,4 +1,6 @@
-"""The CUDA substep kernel on the card, against its plain PyTorch version.
+"""The CUDA substep kernel on the card, against its plain PyTorch version,
+and the DDiffPG agent on the card: its env steps through the kernel, and
+one update pass against the same pass on the CPU.
 
 Needs an NVIDIA card and nvcc, and no JAX. Skipped without a card. On the
 card's machine (no JAX, so without the suite's conftest):
@@ -175,3 +177,53 @@ def test_lane_counts_agree_bitwise(card, name):
     for other in outs[1:]:
         for a, b in zip(outs[0], other):
             assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def _card_agent(card, num_envs=64, **over):
+    """DDiffPG on antmaze-v1 on the card, the stock config at `num_envs`
+    envs (`over` overrides), with a replay that holds one flushed
+    episode per env (clocks set to 480 before 25 warm-up steps)."""
+    from ddiffpg_tpu_torch.agents import make_agent
+    from ddiffpg_tpu_torch.envs import make
+
+    cfg = chip_smoke.train_config().override(
+        **{"num_envs": num_envs, "algo.warm_up": 25, **over})
+    env = make("antmaze-v1", num_envs=num_envs, random_init=True,
+               device=card)
+    agent = make_agent("DDiffPG", env, cfg, device=card)
+    ts = agent.init()
+    ts.env_state = ts.env_state._replace(
+        t=torch.full_like(ts.env_state.t, 480))
+    return agent, agent.warmup(ts), env.env
+
+
+@pytest.mark.cuda
+def test_agent_env_steps_launch_the_kernel(card):
+    """Every env step of the warm-up and of a train iteration is one
+    launch of the substep kernel; the warm-up flushes every env."""
+    agent, ts, ant = _card_agent(card)
+    assert ant.kernel.launches == 25
+    assert int((ts.replay.length == 20).sum()) == 64
+    ant.kernel.launches = 0
+    ts, logs = agent.train_iter(ts, steps=0)
+    torch.cuda.synchronize()
+    assert ant.kernel.launches == agent.cfg.algo.horizon_len
+    assert all(bool(torch.isfinite(v)) for v in logs.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 3])
+def test_update_once_card_matches_cpu(card, G):
+    """One update pass at batch 1024 on the card and on the CPU from
+    copies of one state with the same draws, within chip_smoke.py's
+    bounds (CARD_CPU_TOL)."""
+    from ddiffpg_tpu_torch.replay import episodic as ep
+
+    agent, ts, _ = _card_agent(card, **{"algo.batch_size": 1024})
+    if G > 1:
+        S = ts.replay.capacity
+        mask = torch.zeros((agent.G_max, S), dtype=torch.bool, device=card)
+        mask[0] = ts.replay.length > 0
+        mask[1:G] = mask[0] & (torch.arange(S, device=card) % 2 == 0)
+        ep.set_groups(ts.replay, mask, [0] * G + [-1] * (agent.G_max - G))
+    chip_smoke.card_vs_cpu(agent, ts, agent.cfg, G)

@@ -115,9 +115,11 @@ def test_collect_records_and_auto_reset():
 
 def test_port_runs_without_jax():
     """Importing every module of the port and chip_smoke, then building and
-    stepping antmaze-v1 and PandaDrawerMultiJoints-v3 on the CPU, never
-    loads jax, jaxlib, flax or the JAX package (the card's machine has no
-    JAX, and the port keeps its own copies of what it needs)."""
+    stepping antmaze-v1 and PandaDrawerMultiJoints-v3 on the CPU, and
+    building the DDiffPG agent there and running one small train
+    iteration, never loads jax, jaxlib, flax or the JAX package (the
+    card's machine has no JAX, and the port keeps its own copies of what
+    it needs)."""
     code = (
         "import importlib, pkgutil, sys, torch\n"
         "import ddiffpg_tpu_torch\n"
@@ -134,6 +136,16 @@ def test_port_runs_without_jax():
         "    s, o = env.reset()\n"
         "    pol = DiffusionPolicy(8, obs_dim + 5, 5, device='cpu')\n"
         "    collect(env, pol, s, o, 1, 0.5, torch.zeros(11, 5), 0, .05, .6)\n"
+        "from ddiffpg_tpu_torch import config as C\n"
+        "from ddiffpg_tpu_torch.agents import make_agent\n"
+        "cfg = C.preprocess(C.Config()).override(**{\n"
+        "    'num_envs': 2, 'algo.batch_size': 16, 'algo.memory_size': 4,\n"
+        "    'algo.update_times': 1, 'diffusion.update_times': 2,\n"
+        "    'diffusion.diffusion_iter': 2})\n"
+        "env = make('antmaze-v1', num_envs=2, random_init=True, device='cpu')\n"
+        "agent = make_agent('DDiffPG', env, cfg, device='cpu')\n"
+        "ts, logs = agent.train_iter(agent.init(), steps=0)\n"
+        "assert all(torch.isfinite(v) for v in logs.values()), logs\n"
         "bad = sorted(m for m in ('jax', 'jaxlib', 'flax', 'ddiffpg_tpu')\n"
         "             if m in sys.modules)\n"
         "assert not bad, bad\n"
