@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA substep kernel from this checkout for the ant and the four
-Panda scenes (one nvcc per model, all started together), holds every build
+Panda scenes (one nvcc per model, all started together; the DTW kernel at
+phase 10), holds every build
 to its plain PyTorch version on the card, drives DDiffPG's collect path at
 4096 envs with a stock-width diffusion policy (random weights from a seed)
 on antmaze-v1, PandaDrawerMultiJoints-v3 and PandaReachJoints-v3, and
@@ -13,10 +14,17 @@ with a synchronize around each call, and, after every timed phase, read on
 the device from torch.profiler windows (busy time and idle share). Then it
 trains: stock DDiffPG on antmaze-v1 at 1024 envs (warm-up, timed train
 iterations through the kernel, their host split and device time, three
-live groups, one update pass on the card against the CPU). It prints one
-line per phase, a JSON line `{"train": {...}}`, a JSON line
-`{"kernels": [...]}`, the card's name and power limit as nvidia-smi gives
-them, and last `{"ok": true, "device": {...}}`. It exits non-zero, printing
+live groups, one update pass on the card against the CPU). Last, the
+loop: the CUDA DTW kernel against its plain version and both timed, a
+recluster of 1,000 synthetic successes on antmaze-v1's two corridors at
+the stock size (full, then incremental, then two train iterations at the
+groups found; a subset reclustered on the card and on the CPU alike), and
+the entry point `ddiffpg_tpu_torch.train.main` with the stock config
+(warm-up, reclusters, two evals, a light and the final checkpoint, which
+must reload bit for bit). It prints one line per phase, JSON lines
+`{"train": {...}}`, `{"loop": {...}}` and `{"kernels": [...]}`, the
+card's name and power limit as nvidia-smi gives them, and last
+`{"ok": true, "device": {...}}`. It exits non-zero, printing
 no result, when there is no CUDA card, when the port cannot be imported, or
 when any phase fails. Imports nothing of JAX.
 """
@@ -29,6 +37,8 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -43,6 +53,8 @@ from ddiffpg_tpu_torch.envs.antmaze import AntMazeEnv
 from ddiffpg_tpu_torch.envs.base import VecEnv
 from ddiffpg_tpu_torch.envs.panda import PandaTaskEnv
 from ddiffpg_tpu_torch.models.diffusion import DiffusionPolicy
+from ddiffpg_tpu_torch.modes import _native
+from ddiffpg_tpu_torch.ops import dtw, dtw_cuda
 from ddiffpg_tpu_torch.physics import engine
 from ddiffpg_tpu_torch.physics import quat as Q
 from ddiffpg_tpu_torch.physics.panda import (JOINT_LIMIT_HI, JOINT_LIMIT_LO,
@@ -76,6 +88,13 @@ TRAIN_ENVS = 1024        # bench.py:26's train-iteration cell
 TRAIN_ITERS = 10         # timed train iterations, after 2 untimed
 SPLIT_REPS = 5           # calls per part of the host split (median)
 TRAIN_GROUPS = 3         # live groups of the G > 1 check
+DTW_PAIRS = 4096         # pairs of the DTW kernel's check and timing
+# kernel vs plain DTW: both round op by op alike (-fmad=false), so only
+# a ulp or so may part them
+DTW_TOL = 1e-6
+N_SUCCESS = 1000         # successes in the stock-size recluster, 500 a route
+N_NEW = 64               # new successes before the incremental recluster
+SUBSET = 64              # successes of the card-vs-CPU recluster
 # one update pass on the card against the CPU, from one state with the same
 # draws (4096 samples): float32 GEMMs summed in another order feed one Adam
 # step of the parameters (3e-8 and 7e-8 seen on an H100). The action
@@ -686,14 +705,404 @@ def train_phase(smi: str):
 
 
 def kernel_entry(name: str, launches: int, err: float, ms: float,
-                 plain_ms: float, bound) -> dict:
-    return {"name": name, "route": "cuda",
-            "source": "ddiffpg_tpu_torch/csrc/substep.cu",
-            "replaces": "ddiffpg_tpu/physics/pallas_ant.py:143",
-            "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
-            "library_ms": None}
+                 plain_ms: float, bound,
+                 source: str = "ddiffpg_tpu_torch/csrc/substep.cu",
+                 replaces: str = "ddiffpg_tpu/physics/pallas_ant.py:143"
+                 ) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": None}
 
+
+# ------------------------------------------------------------ 10. the loop
+
+def route_track(rng, n: int, y: float) -> np.ndarray:
+    """n + 1 xy points of an antmaze-v1 success: from the reset cell (0, 0)
+    up or down the corridor at y = +-4, around MAZE_v1's central wall, to
+    the goal (-8, 0), evenly along the path, with a slow wander and point
+    noise."""
+    corners = np.array([[0.0, 0.0], [0.0, y], [-8.0, y], [-8.0, 0.0]])
+    seg = np.linalg.norm(np.diff(corners, axis=0), axis=1)
+    s = np.linspace(0.0, seg.sum(), n + 1)
+    x = np.interp(s, np.concatenate([[0], np.cumsum(seg)]), corners[:, 0])
+    yy = np.interp(s, np.concatenate([[0], np.cumsum(seg)]), corners[:, 1])
+    wander = np.cumsum(rng.randn(n + 1, 2), axis=0) * 0.02
+    return np.stack([x, yy], 1) + wander + 0.05 * rng.randn(n + 1, 2)
+
+
+def failure_track(rng, n: int) -> np.ndarray:
+    """n + 1 xy points of a failure: a random walk in the reset cell."""
+    return np.clip(np.cumsum(rng.randn(n + 1, 2) * 0.1, axis=0), -1.9, 1.9)
+
+
+def write_trajectories(ts, plans, steps: int, seed: int):
+    """Record synthetic trajectories through `replay/episodic.py:add`, one
+    env step at a time for `steps` steps. plans[e] lists env e's
+    trajectories in order as (kind, n steps, route y): kind "success"
+    (reward 10 and goal id 1 on its last step) or "failure"; an env whose
+    plan ends before `steps` leaves the rest in flight. Obs are the track's
+    xy and zeros."""
+    rng = np.random.RandomState(seed)
+    rep = ts.replay
+    E, D = rep.tmp_obs.shape[0], rep.obs.shape[-1]
+    A = rep.action.shape[-1]
+    xy = np.zeros((2, steps, E, 2), np.float32)      # obs, next obs
+    end = np.zeros((steps, E), bool)
+    succ = np.zeros((steps, E), np.int32)
+    for e, plan in enumerate(plans):
+        t = 0
+        for kind, n, y in plan + [("flight", steps - sum(
+                p[1] for p in plan), 0.0)]:
+            if n <= 0:
+                continue
+            tr = route_track(rng, n, y) if kind == "success" else \
+                failure_track(rng, n)
+            xy[0, t: t + n, e], xy[1, t: t + n, e] = tr[:-1], tr[1:]
+            if kind != "flight":
+                end[t + n - 1, e] = True
+                succ[t + n - 1, e] = kind == "success"
+            t += n
+    dev = rep.obs.device
+    xy, end, succ = (torch.tensor(a, device=dev) for a in (xy, end, succ))
+    goal = torch.tensor([[-8.0, 0.0]], device=dev)
+    obs = torch.zeros((2, steps, E, D), device=dev)
+    obs[..., :2] = xy
+    for t in range(steps):
+        ep.add(rep, obs[0, t], torch.zeros((E, A), device=dev),
+               10.0 * succ[t], obs[1, t], end[t] & (succ[t] > 0), end[t],
+               succ[t], goal_dist=torch.linalg.vector_norm(
+                   obs[1, t, :, None, :2] - goal, dim=-1))
+    return ts
+
+
+def dtw_inputs(seed: int, n_tracks: int, pairs: int, device="cuda"):
+    """antmaze-like xy tracks (the two routes and failures, lengths
+    300-500, Dx 2) stacked [N, 500, 2], with `pairs` random pairs of them
+    and edge pairs (length 1 and 2 against themselves and against 500)."""
+    rng = np.random.RandomState(seed)
+    L = 500
+    lens = rng.randint(300, L + 1, n_tracks).astype(np.int32)
+    lens[:3] = (1, 2, L)
+    stack = np.zeros((n_tracks, L, 2), np.float32)
+    for k, n in enumerate(lens):
+        tr = route_track(rng, n, (4.0, -4.0)[k % 2]) if k % 3 else \
+            failure_track(rng, n)
+        stack[k, :n] = tr[:n]
+    ia = rng.randint(0, n_tracks, pairs).astype(np.int32)
+    ib = rng.randint(0, n_tracks, pairs).astype(np.int32)
+    edge = np.array([[0, 0], [0, 1], [1, 0], [0, 2], [2, 0], [1, 2],
+                     [2, 1], [2, 2]], np.int32)
+    ia, ib = np.concatenate([ia, edge[:, 0]]), np.concatenate([ib,
+                                                               edge[:, 1]])
+    return tuple(torch.tensor(a, device=device)
+                 for a in (stack, stack, lens, lens, ia, ib))
+
+
+def dtw_bound(args):
+    """(bound ms, what sets it, flops) of one DTW call on these inputs:
+    8 flops a DP cell (Dx subtractions, products and sums, two minimums,
+    the add) over sum(la * lb) cells at the fp32 peak, against the bytes
+    that must move (each referenced track row read once, the lengths and
+    pair indices read, the distances written) at the HBM rate."""
+    stack_a, stack_b, la, lb, ia, ib = args
+    la_p, lb_p = la[ia.long()].double(), lb[ib.long()].double()
+    flops = float((la_p * lb_p).sum()) * 8
+    Dx = stack_a.shape[-1]
+    rows = float(la[torch.unique(ia.long())].sum()
+                 + lb[torch.unique(ib.long())].sum())
+    nbytes = 4 * (rows * Dx + la.numel() + lb.numel() + 3 * ia.numel())
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes) * 1e3, by, flops
+
+
+def dtw_phase(smi: str):
+    """10a: the DTW kernel against its plain version on DTW_PAIRS pairs,
+    then both timed (CUDA events) and the bound. Returns the record."""
+    t0 = time.time()
+    kern = dtw_cuda.get_kernel("cuda")
+    ptxas = dtw_cuda.build().with_suffix(".log").read_text().splitlines()
+    log("10 loop", f"DTW kernel loaded in {time.time() - t0:.1f} s; "
+        + " ".join(line.strip() for line in ptxas
+                   if "registers" in line or "spill" in line))
+    args = dtw_inputs(5, 640, DTW_PAIRS)
+    got = dtw.dtw_batch_gather(*args)
+    want = dtw.dtw_wavefront(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
+    edge = got[-8:].tolist()
+    ok = rel <= DTW_TOL and bool(torch.isfinite(got).all()) \
+        and edge[0] == 0.0 and edge[-1] == 0.0
+    log("10 loop", f"DTW kernel vs plain on {args[4].numel()} pairs "
+        f"(lengths 300-500 and 1, 2, 500): max |diff| {err:.3e}, max "
+        f"relative {rel:.3e} (bound {DTW_TOL:g}), bitwise "
+        f"{bool(torch.equal(got, want))}; edge pairs {edge} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("the DTW kernel disagrees with its plain version")
+    ms = cuda_ms(lambda: kern(*args), 20)
+    plain_ms = cuda_ms(lambda: dtw.dtw_wavefront(*args), 2)
+    bound = dtw_bound(args)
+    P = args[4].numel()
+    log("10 loop", f"DTW of {P} pairs: kernel {ms:.4f} ms "
+        f"({P / ms * 1e3:,.0f} pairs/s), plain PyTorch {plain_ms:.2f} ms, "
+        f"bound {bound[0]:.5f} ms ({bound[1]}, {bound[2]:.4e} flops) "
+        f"[{smi}]")
+    return {"pairs": P, "max_abs_err": err, "max_rel_err": rel, "ms": ms,
+            "plain_ms": plain_ms, "bound": bound}
+
+
+def fill_plans(rng, n_env: int, n_success: int, steps: int):
+    """Per-env trajectory plans for `write_trajectories`: envs 0.. first
+    run a success (alternating the two routes, lengths 300 to steps - 20)
+    then a failure to the window's end; of the n_success of them the last
+    24 run a success of the whole window; the others one failure of the
+    window. Returns (plans, successes, failures)."""
+    plans = []
+    for e in range(n_env):
+        y = (4.0, -4.0)[e % 2]
+        if e < n_success - 24:
+            n = int(rng.randint(300, steps - 19))
+            plans.append([("success", n, y), ("failure", steps - n, 0.0)])
+        elif e < n_success:
+            plans.append([("success", steps, y)])
+        else:
+            plans.append([("failure", steps, 0.0)])
+    n_fail = sum(k == "failure" for p in plans for k, _, _ in p)
+    return plans, n_success, n_fail
+
+
+def recluster_checks(agent, ts, what: str):
+    """Two modes, each route's successes in one of them, the two masks
+    disjoint on the successes. Returns the number of successes."""
+    rep = ts.replay
+    valid = (rep.traj_id >= 0) & (rep.length > 0)
+    succ = valid & (rep.success > 0)
+    L = rep.obs.shape[1] - 1
+    steps = torch.arange(L + 1, device=rep.obs.device)
+    live = (steps[None] <= rep.length[:, None]).float()
+    mean_y = (rep.obs[:, :, 1] * live).sum(1) / live.sum(1)
+    upper, lower = succ & (mean_y > 0), succ & (mean_y < 0)
+    m = rep.group_mask
+    g_up = [g for g in (1, 2) if bool(m[g][upper].all())]
+    g_lo = [g for g in (1, 2) if bool(m[g][lower].all())]
+    ok = (agent.num_groups == 3 and len(g_up) == len(g_lo) == 1
+          and g_up != g_lo and not bool((m[1] & m[2] & succ).any())
+          and bool(upper.any()) and bool(lower.any()))
+    log("10 loop", f"{what}: {agent.num_clusters} modes, successes "
+        f"{int(upper.sum())} upper + {int(lower.sum())} lower, each route "
+        f"in one mode, masks disjoint on the successes: "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"{what}: the recluster did not find the routes")
+    return int(succ.sum())
+
+
+def same_result(a, b) -> bool:
+    """Two ClusterResults agree: clusters, masks, evictions, plan, goal
+    counts, linkage merges (heights compared apart)."""
+    same = (a.num_groups == b.num_groups and a.goal_counts == b.goal_counts
+            and a.clusters == b.clusters
+            and a.unsuccess_clusters == b.unsuccess_clusters
+            and np.array_equal(a.group_mask, b.group_mask)
+            and np.array_equal(a.evict_slots, b.evict_slots)
+            and all(np.array_equal(getattr(a.plan, f.name),
+                                   getattr(b.plan, f.name))
+                    for f in dataclasses.fields(a.plan)))
+    if a.Z is None or b.Z is None:
+        return same and a.Z is None and b.Z is None
+    return same and np.array_equal(a.Z[:, [0, 1, 3]], b.Z[:, [0, 1, 3]])
+
+
+def card_vs_cpu_recluster(ts, cfg, n_success: int):
+    """The same recluster on a subset of the replay (its first n_success
+    successes and as many failures) by a ClusterManager on the card and
+    one on the CPU (the plain DTW): (identical, heights' max relative
+    difference, CPU seconds)."""
+    from ddiffpg_tpu_torch.modes.cluster import ClusterManager
+
+    rep = ts.replay
+    host = lambda x: x.cpu().numpy().copy()  # noqa: E731
+    traj_id, length, success = (host(rep.traj_id), host(rep.length),
+                                host(rep.success))
+    tracks = host(rep.obs[:, :, :2])
+    valid = (traj_id >= 0) & (length > 0)
+    keep = np.concatenate([np.flatnonzero(valid & (success > 0))[:n_success],
+                           np.flatnonzero(valid & (success == 0))[
+                               :n_success]])
+    drop = np.setdiff1d(np.arange(len(traj_id)), keep)
+    traj_id[drop], length[drop] = -1, 0
+    a = cfg.algo
+    res, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        cm = ClusterManager(capacity=int(a.memory_size),
+                            max_modes=a.max_modes,
+                            threshold=a.cluster_threshold, seed=cfg.seed,
+                            device=dev)
+        t0 = time.time()
+        res[dev] = cm.recluster(traj_id, length, success, tracks)
+        secs[dev] = time.time() - t0
+    za, zb = res["cuda"].Z, res["cpu"].Z
+    rel = float(np.max(np.abs(za[:, 2] - zb[:, 2])
+                       / np.maximum(np.abs(zb[:, 2]), 1e-30)))
+    return same_result(res["cuda"], res["cpu"]), rel, secs, \
+        res["cuda"].num_groups
+
+
+def recluster_phase(smi: str):
+    """10b: the stock DDiffPG agent on antmaze-v1 at TRAIN_ENVS envs, its
+    replay filled through `add` with N_SUCCESS successes on the two routes
+    and as many failures; a full recluster timed, then N_NEW new
+    successes and an incremental one, then two train iterations at G = 3;
+    beside it the recluster of a subset on the card and on the CPU.
+    Returns (the record, the DTW kernel's launches in the two
+    reclusters)."""
+    cfg = train_config()
+    env = make("antmaze-v1", num_envs=TRAIN_ENVS,
+               random_init=cfg.env.random_init, device="cuda", seed=0)
+    agent = make_agent("DDiffPG", env, cfg)
+    ts = agent.init()
+    rng = np.random.RandomState(0)
+    L = env.max_episode_length
+    plans, n_succ, n_fail = fill_plans(rng, TRAIN_ENVS, N_SUCCESS, L)
+    t0 = time.time()
+    write_trajectories(ts, plans, L, 1)
+    torch.cuda.synchronize()
+    stored = int((ts.replay.traj_id >= 0).sum())
+    log("10 loop", f"replay of {ts.replay.capacity} slots filled through "
+        f"add: {n_succ} successes, {n_fail} failures, {stored} stored in "
+        f"{time.time() - t0:.1f} s [{smi}]")
+    kern = dtw_cuda.get_kernel("cuda")
+    cm = agent.cluster_manager
+    out = {}
+    kern.launches = 0
+    for what in ("full", "incremental"):
+        if what == "incremental":
+            # N_NEW envs end a success and a failure inside a window of
+            # L - 20 steps; the others stay in flight
+            steps = L - 20
+            plans = []
+            for e in range(N_NEW):
+                n = int(rng.randint(300, steps - 19))
+                plans.append([("success", n, (4.0, -4.0)[e % 2]),
+                              ("failure", steps - n, 0.0)])
+            write_trajectories(ts, plans + [[]] * (TRAIN_ENVS - N_NEW),
+                               steps, 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts = agent.update_cluster(ts)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        st = dict(cm.dtw_stats)
+        n = recluster_checks(agent, ts, f"{what} recluster")
+        out[what] = {"seconds": secs, "dtw_seconds": st["seconds"],
+                     "host_seconds": secs - st["seconds"],
+                     "pairs": st["pairs"], "calls": st["calls"],
+                     "successes": n}
+        log("10 loop", f"{what} recluster over {n} successes: {secs:.3f} s, "
+            f"{st['pairs']} DTW pairs in {st['calls']} calls, DTW "
+            f"{st['seconds']:.3f} s ({st['seconds'] / secs:.1%}), host "
+            f"{secs - st['seconds']:.3f} s [{smi}]")
+    launches = kern.launches
+    if launches == 0:
+        raise RuntimeError("the reclusters launched no DTW kernel")
+    steps = int(ts.global_step)
+    for _ in range(2):
+        ts, logs = agent.train_iter(ts, steps)
+        steps += TRAIN_ENVS
+        check_logs(logs, "train after the recluster")
+    log("10 loop", f"two train iterations at G={agent.num_groups}: logs "
+        f"finite, critic_loss {float(logs['train/critic_loss']):.4g}")
+    same, rel, secs, groups = card_vs_cpu_recluster(ts, cfg, SUBSET)
+    log("10 loop", f"recluster of {SUBSET} successes + {SUBSET} failures on "
+        f"the card and on the CPU: ClusterResults identical {same} "
+        f"({groups} groups; linkage heights max relative difference "
+        f"{rel:.3e}); card {secs['cuda']:.2f} s, CPU {secs['cpu']:.2f} s "
+        f"[{smi}]")
+    if not same:
+        raise RuntimeError("card and CPU reclusters differ")
+    out["card_vs_cpu"] = {"identical": same, "heights_max_rel": rel,
+                          "card_s": secs["cuda"], "cpu_s": secs["cpu"]}
+    return out, launches
+
+
+def loop_phase(smi: str):
+    """10c: `ddiffpg_tpu_torch.train.main` with the stock config on
+    antmaze-v1 at TRAIN_ENVS envs: warm-up, the initial recluster, four
+    train iterations with an eval and a recluster every two, a light
+    checkpoint at the second eval, the final full checkpoint. Checks the
+    substep kernel's launches (once an env step, eval included) and that
+    the final checkpoint loads back equal tensor by tensor. Returns the
+    record."""
+    import tempfile
+
+    from ddiffpg_tpu_torch import train
+    from ddiffpg_tpu_torch.utils import checkpoint as ckpt
+
+    cfg = train_config()
+    warm, iters = cfg.algo.warm_up, 4
+    made, make_envs = [], train.make_envs
+
+    def recording_make_envs(*a, **k):
+        made.extend(make_envs(*a, **k))
+        return made[-2:]
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        train.make_envs = recording_make_envs
+        try:
+            t0 = time.time()
+            ts = train.main([
+                "algo=ddiffpg", "env.name=antmaze-v1",
+                f"num_envs={TRAIN_ENVS}", "seed=0", "eval_freq=2",
+                "ckpt_freq_mult=1",
+                f"max_step={(warm + iters) * TRAIN_ENVS}",
+                f"logdir={tmp}", "run_name=smoke"])
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        finally:
+            train.make_envs = make_envs
+        peak = torch.cuda.max_memory_allocated()
+        train_env, eval_env = made[:2]
+        launches = {"train": train_env.env.kernel.launches,
+                    "eval": eval_env.env.kernel.launches}
+        want = {"train": warm + cfg.algo.horizon_len * iters,
+                "eval": 2 * eval_env.max_episode_length}
+        log("10 loop", f"train.main: {wall:.1f} s; substep kernel launches "
+            f"{launches} (want {want}); peak memory {peak / 2**20:.0f} MiB "
+            f"[{smi}]")
+        if launches != want:
+            raise RuntimeError("the loop's env steps did not each launch the "
+                               "kernel once")
+        run = Path(tmp) / "smoke"
+        recs = [json.loads(x) for x in
+                (run / "metrics.jsonl").read_text().splitlines()]
+        times = {}
+        for r in recs:
+            for k, v in r.items():
+                if k.startswith("time/"):
+                    times.setdefault(k[5:], []).append(v)
+        names = sorted(p.name for p in run.glob("ckpt_*.pt"))
+        log("10 loop", f"checkpoints {names}; " + ", ".join(
+            f"{k} {v}" for k, v in sorted(times.items())) + f" [{smi}]")
+        evals = sum("eval/return" in r for r in recs)
+        if evals != 2 or len(names) != 2:
+            raise RuntimeError(f"{evals} evals and checkpoints {names}")
+        # the final checkpoint into a fresh state on the card
+        env, _ = train.make_envs(cfg, torch.device("cuda"))
+        fresh = make_agent("DDiffPG", env, cfg).init()
+        fresh, meta = ckpt.load(run / "ckpt_final.pt", fresh)
+        got, want_t = dict(ckpt.leaves(fresh)), dict(ckpt.leaves(ts))
+        bad = [k for k in want_t if not torch.equal(got[k], want_t[k])]
+        log("10 loop", f"final checkpoint reloaded into a fresh state: "
+            f"{len(want_t)} tensors, {len(bad)} differ; num_groups "
+            f"{meta['num_groups']}")
+        if bad or set(got) != set(want_t):
+            raise RuntimeError(f"the reload differs: {bad[:5]}")
+    return {"wall_s": wall, "times": times, "checkpoints": names,
+            "substep_launches": launches, "peak_memory_bytes": peak}
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -719,9 +1128,15 @@ def main() -> int:
     panda_c = {(task, n): SubstepConstants.from_model(m, n_substeps=n)
                for task, (m, _) in scenes.items() for n in (20, 1)}
     builds = list(ant_c.values()) + list(panda_c.values())
-    build_all(builds)
-    log("2 build", f"{len(builds)} kernels (ant at 10 and 1 substeps, four "
-        f"Panda scenes at 20 and 1) built in {time.time() - t0:.1f} s")
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        # the DTW kernel (nvcc) and the linkage library (g++) beside them
+        others = [pool.submit(dtw_cuda.build), pool.submit(_native.build)]
+        build_all(builds)
+        for f in others:
+            f.result()
+    log("2 build", f"{len(builds)} substep kernels (ant at 10 and 1 "
+        "substeps, four Panda scenes at 20 and 1), the DTW kernel and the "
+        f"linkage library built in {time.time() - t0:.1f} s")
     labels = [f"ant n_substeps {n}" for n in ant_c] + [
         f"{task} n_substeps {n}" for task, n in panda_c]
     for label, c in zip(labels, builds):
@@ -900,10 +1315,19 @@ def main() -> int:
     # ------------------------------------------- 9. DDiffPG train iteration
     train, train_launches = train_phase(smi)
 
-    # ---------------------------------------------------------- 10. result
+    # --------------------------------------- 10. recluster, eval, the loop
+    dtw_rec = dtw_phase(smi)
+    recluster, dtw_launches = recluster_phase(smi)
+    loop = loop_phase(smi)
+    loop_launches = sum(loop["substep_launches"].values())
+
+    # ---------------------------------------------------------- 11. result
     print(json.dumps({"train": train}))
+    print(json.dumps({"loop": {"dtw": dtw_rec, "recluster": recluster,
+                               "run": loop, "card": smi}}))
     print(json.dumps({"kernels": [
-        kernel_entry("substep_ant", ant_launches + train_launches, ant_err,
+        kernel_entry("substep_ant",
+                     ant_launches + train_launches + loop_launches, ant_err,
                      ant_ms, ant_plain_ms, ant_bound),
         kernel_entry("substep_panda_drawermulti", drawer_launches,
                      panda_err["DrawerMulti"], panda_ms["DrawerMulti"],
@@ -911,7 +1335,11 @@ def main() -> int:
                      panda_bound["DrawerMulti"]),
         kernel_entry("substep_panda_reach", reach_launches,
                      panda_err["Reach"], panda_ms["Reach"],
-                     panda_plain_ms["Reach"], panda_bound["Reach"])]}))
+                     panda_plain_ms["Reach"], panda_bound["Reach"]),
+        kernel_entry("dtw", dtw_launches, dtw_rec["max_abs_err"],
+                     dtw_rec["ms"], dtw_rec["plain_ms"], dtw_rec["bound"],
+                     source="ddiffpg_tpu_torch/csrc/dtw.cu",
+                     replaces="ddiffpg_tpu/ops/dtw.py:25")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

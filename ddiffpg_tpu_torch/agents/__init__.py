@@ -1,4 +1,4 @@
-"""Agents of the port: DDiffPG (acting and the training iteration).
+"""Agents of the port: DDiffPG (acting, training, reclustering, eval).
 
 `make_agent` mirrors `ddiffpg_tpu.agents.make_agent`; the baselines (TD3,
 SAC, DIPO, DiffQ) are not ported yet.

@@ -13,8 +13,10 @@ The JAX agent jits a train iteration as one program over a donated state.
 Here the state's tensors and modules are updated in place by eager PyTorch
 calls; the only host waits are the replay's flush (one per env step) and
 reading `global_step` for the explore ratio when the caller passes no step
-count. The recluster (`update_cluster`) is not ported yet: callers set
-`num_groups` and the replay's groups (`replay.episodic.set_groups`).
+count. At eval cadence `update_cluster` reclusters the stored successes
+(`modes/cluster.py`, its DTW on the card through `csrc/dtw.cu`) and
+applies the Q-scheduler's plan to the replay's groups, the critic rows,
+their optimizer rows and the mode embeddings.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from ddiffpg_tpu_torch.envs.base import EnvState
 from ddiffpg_tpu_torch.intrinsic import IntrinsicModule, IntrinsicState
 from ddiffpg_tpu_torch.models.diffusion import DiffusionPolicy
 from ddiffpg_tpu_torch.models.mlp import DistributionalDoubleQ, q_min
+from ddiffpg_tpu_torch.modes.cluster import ClusterManager
 from ddiffpg_tpu_torch.ops import optim
 from ddiffpg_tpu_torch.ops.embedding import add_embedding, append_embedding
 from ddiffpg_tpu_torch.ops.noise import (add_mixed_normal_noise,
@@ -183,9 +186,17 @@ class AgentDDiffPG:
             depth_scale=cfg.intrinsic.depth_scale)
         self.generator = generator or torch.Generator(
             device=self.device).manual_seed(cfg.seed)
+        self.cluster_manager = ClusterManager(
+            capacity=int(a.memory_size), max_modes=a.max_modes,
+            threshold=a.cluster_threshold,
+            use_downsampling=a.use_downsampling,
+            traj_dim=_pos_dim(cfg.env.name), seed=cfg.seed,
+            split_by_goal=a.split_by_goal, device=self.device)
         self.num_groups = 1
         self.num_clusters = 0
-        self.last_goal_counts = {}
+        self.last_goal_counts = {}       # goal id -> replay success count
+        self.last_plot = None
+        self.last_unsuccess_plot = None
 
         if "antmaze" in cfg.env.name or "pointmaze" in cfg.env.name:
             self._maze_map = maze.MAZES[cfg.env.name.replace("pointmaze",
@@ -502,6 +513,68 @@ class AgentDDiffPG:
             if not held:
                 p = 1.0
         return float(p)
+
+    # ------------------------------------------------------------- recluster
+
+    @torch.no_grad()
+    def update_cluster(self, ts: DDiffPGState,
+                       fresh_embeddings: torch.Tensor | None = None
+                       ) -> DDiffPGState:
+        """Recluster the stored trajectories and apply the plan in place:
+        evict slots, set the replay's groups and target-action rows, gather
+        the critic rows, targets and optimizer rows by `src_row` (optimizer
+        rows reset where `fresh_opt`), and inherit embeddings by
+        `embedding_src` or take fresh ones: `fresh_embeddings` [G_max, E]
+        when given (tests feed the JAX package's draw), else a draw from
+        the agent's generator."""
+        rep = ts.replay
+        host = lambda x: x.cpu().numpy()  # noqa: E731
+        pos_dim = self.cluster_manager.traj_dim
+        keep = self.cfg.algo.frontier_keep
+        protect = (host(ep.frontier_mask(rep, keep)).nonzero()[0]
+                   if keep > 0 else None)
+        res = self.cluster_manager.recluster(
+            host(rep.traj_id), host(rep.length), host(rep.success),
+            host(rep.obs[:, :, :pos_dim]), protect_slots=protect)
+        plan = res.plan
+        self.num_groups = res.num_groups
+        self.num_clusters = res.num_groups - 1
+        self.last_goal_counts = res.goal_counts
+        self.last_plot = (res.plot_success, res.plot_clusters, res.Z)
+        self.last_unsuccess_plot = (
+            (res.plot_unsuccess, res.plot_unsuccess_clusters)
+            if res.plot_unsuccess else None)
+
+        dev = self.device
+        if len(res.evict_slots):
+            sl = torch.as_tensor(res.evict_slots, device=dev)
+            rep.length[sl] = 0
+            rep.traj_id[sl] = -1
+        ep.set_groups(rep, torch.as_tensor(res.group_mask, device=dev),
+                      torch.as_tensor(plan.parent_row, device=dev))
+
+        # critic rows from their parents; fresh optimizer rows start from
+        # adam_init's zeros. As in the JAX package, a fresh mode row copies
+        # the explore row (src_row 0) whose atoms sit on the explore
+        # support; its reset optimizer and the BCE target retrain it.
+        src = torch.as_tensor(plan.src_row, device=dev)
+        fresh = torch.as_tensor(plan.fresh_opt, device=dev)
+        for p in ts.critics.params() + ts.critic_targets.params():
+            p.copy_(p[src])
+        opt = ts.critic_opts
+        for x in opt.mu + opt.nu + [opt.count]:
+            m = fresh.reshape((-1,) + (1,) * (x.dim() - 1))
+            x.copy_(torch.where(m, torch.zeros_like(x), x[src]))
+
+        if fresh_embeddings is None:
+            fresh_embeddings = torch.randn(ts.embeddings.shape,
+                                           generator=self.generator,
+                                           device=dev)
+        esrc = torch.as_tensor(plan.embedding_src, device=dev)
+        inherited = ts.embeddings[esrc.clamp(0, self.G_max - 1)]
+        ts.embeddings.copy_(torch.where((esrc >= 0)[:, None], inherited,
+                                        fresh_embeddings.to(dev)))
+        return ts
 
     # ------------------------------------------------------------ evaluation
 

@@ -4,7 +4,8 @@ Copy of the dataclasses of `ddiffpg_tpu/config.py` with field-identical
 defaults, its per-algorithm presets (`algo_preset`), its per-env
 `preprocess` and the dotted override helper, so that the port builds its
 agent from the same stock configuration without importing the JAX
-package. The YAML loader is not copied yet.
+package, and its `override_strings` for the command line. The YAML loader
+is not copied yet.
 """
 
 from __future__ import annotations
@@ -205,7 +206,7 @@ class Config:
     # artifacts). The end-of-run checkpoint is always full.
     ckpt_full: bool = False
     profile: bool = False        # capture a profiler trace of iters 20-22
-    device: str = "auto"         # 'auto' | 'cpu' | 'tpu' (the JAX package's choice)
+    device: str = "auto"         # 'auto': the CUDA card (else raises); 'cpu'
     # numerics
     param_dtype: str = "float32"
 
@@ -215,6 +216,20 @@ class Config:
         cfg = self
         for k, v in dotted.items():
             cfg = _replace_nested(cfg, k, v)
+        return cfg
+
+    def override_strings(self, pairs) -> "Config":
+        """Apply `key.path=value` CLI-style overrides with literal parsing."""
+        import ast
+
+        cfg = self
+        for pair in pairs:
+            k, _, v = pair.partition("=")
+            try:
+                val = ast.literal_eval(v)
+            except (ValueError, SyntaxError):
+                val = None if v in ("null", "None") else v
+            cfg = _replace_nested(cfg, k, val)
         return cfg
 
 

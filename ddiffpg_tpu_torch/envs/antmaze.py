@@ -47,6 +47,7 @@ class AntMazeEnv:
         goals = maze.GOALS[name]
         self.goal_xy = torch.tensor([g[0] for g in goals], dtype=torch.float32,
                                     device=self.device)          # [G, 2]
+        self.num_goals = len(goals)
         self.goal_reward = torch.tensor([g[1] for g in goals],
                                         dtype=torch.float32,
                                         device=self.device)      # [G]

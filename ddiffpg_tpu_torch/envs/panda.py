@@ -62,6 +62,11 @@ class PandaTaskEnv:
             return torch.as_tensor(np.asarray(a), dtype=dtype,
                                    device=self.device)
 
+        # 1-based goal ids of info["success"], for the eval's per-goal rates
+        self.num_goals = {"Reach": 1,
+                          "PegInsertion": len(self.meta.get("goals", [0])),
+                          "DrawerMulti": len(self.meta["task_qposadr"]),
+                          "Cabinet": 1}[task]
         self.init_qpos = const(self.model.init_qpos)
         self.arm_adr = const(self.meta["arm_qposadr"], torch.long)
         self.finger_adr = const(self.meta["finger_qposadr"], torch.long)

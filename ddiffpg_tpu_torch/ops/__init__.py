@@ -1,2 +1,3 @@
-"""Tensor ops of acting and of the update pass: DDPM, mode embeddings,
-noise, the optax chains, the C51 projection, running stats, posenc."""
+"""Tensor ops of acting, of the update pass and of the recluster: DDPM,
+mode embeddings, noise, the optax chains, the C51 projection, running
+stats, posenc, DTW (plain wavefront and the CUDA kernel's binding)."""

@@ -183,31 +183,39 @@ def _nvcc() -> str:
                        "built on this machine")
 
 
-def build(c: SubstepConstants, lanes: int | None = None) -> Path:
-    """Compile the kernel for these constants (cached by content); returns
-    the library's path. The compiler's report (registers, spills) is kept
-    beside it as `<name>.log`."""
-    block = model_block(c)
-    flags = defines(c, lanes)
-    key = hashlib.sha256()
-    key.update(SOURCE.read_bytes())
-    key.update(" ".join(NVCC_FLAGS + tuple(flags)).encode())
-    key.update(bytes(block))
-    path = BUILD_DIR / f"substep_{key.hexdigest()[:16]}.so"
+def compile_library(compiler: str, flags, source: Path, prefix: str,
+                    key_extra: bytes = b"") -> Path:
+    """Compile `source` into a shared library under BUILD_DIR with
+    `compiler *flags -o <lib> source`, cached by the hash of the source,
+    the flags and `key_extra`; the compiler's output is kept beside it as
+    `<name>.log`. Returns the library's path; raises if the build fails."""
+    key = hashlib.sha256(source.read_bytes())
+    key.update(" ".join(flags).encode())
+    key.update(key_extra)
+    path = BUILD_DIR / f"{prefix}_{key.hexdigest()[:16]}.so"
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp, str(SOURCE)]
+    cmd = [compiler, *flags, "-o", tmp, str(source)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     path.with_suffix(".log").write_text(
         " ".join(cmd) + "\n" + res.stdout + res.stderr)
     if res.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        raise RuntimeError(f"{Path(compiler).name} failed ({res.returncode})"
+                           f":\n{res.stderr}")
     os.replace(tmp, path)
     return path
+
+
+def build(c: SubstepConstants, lanes: int | None = None) -> Path:
+    """Compile the kernel for these constants (cached by content); returns
+    the library's path. The compiler's report (registers, spills) is kept
+    beside it as `<name>.log`."""
+    return compile_library(_nvcc(), NVCC_FLAGS + tuple(defines(c, lanes)),
+                           SOURCE, "substep", bytes(model_block(c)))
 
 
 def build_all(consts) -> list:

@@ -1,0 +1,315 @@
+"""Training entry point of the port: DDiffPG on one card.
+
+    python -m ddiffpg_tpu_torch.train algo=ddiffpg env.name=antmaze-v1
+    python -m ddiffpg_tpu_torch.train device=cpu num_envs=8 eval_num_envs=4 \
+        algo.warm_up=16 algo.batch_size=64 max_step=160
+
+Counterpart of the root `train.py` (DDiffPG only: the baselines are not
+ported). Dotted key=value pairs override the typed config
+(`ddiffpg_tpu_torch/config.py`), before and again after the per-env
+`preprocess`. `device=auto` (the default) is the CUDA card and raises
+without one; `device=cpu` runs everything on the CPU.
+
+The loop: warm-up with random actions, the initial recluster, then train
+iterations; every `eval_freq` iterations a recluster (after the first) and
+an eval rollout; every `eval_freq * ckpt_freq_mult` a light checkpoint
+(replay left out; full with `ckpt_full`); logs every `log_freq`; a full
+checkpoint at the end. SIGUSR1 asks for a full checkpoint at the next loop
+top, SIGTERM for a full checkpoint and a clean stop, SIGINT exits. Besides
+the JAX package's metrics it logs the loop's own costs under `time/`
+(host clock, the device synchronized around each timed call): warm-up,
+recluster (and its DTW share), eval rollout and checkpoint seconds,
+checkpoint bytes, and the seconds per train iteration between log points.
+`resume=<path>` restores a full or light checkpoint.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import signal
+import sys
+import time
+
+import torch
+
+from ddiffpg_tpu_torch import config as C
+from ddiffpg_tpu_torch.agents import make_agent
+from ddiffpg_tpu_torch.agents.evaluation import eval_rollout
+from ddiffpg_tpu_torch.envs import make
+from ddiffpg_tpu_torch.utils import checkpoint as ckpt
+from ddiffpg_tpu_torch.utils.logger import Logger
+
+
+def parse_args(argv):
+    algo = "ddiffpg"
+    resume = None
+    overrides = []
+    for a in argv:
+        if a.startswith("algo="):
+            algo = a.split("=", 1)[1]
+        elif a.startswith("resume="):
+            resume = a.split("=", 1)[1]
+        else:
+            overrides.append(a)
+    return algo, resume, overrides
+
+
+def resolve_device(name: str) -> torch.device:
+    """`auto`: the CUDA card, which must be present; `cpu`: the CPU."""
+    if name == "auto":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device=auto needs a CUDA card and none is "
+                               "present; pass device=cpu to train on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    if name == "cpu":
+        return torch.device("cpu")
+    raise ValueError(f"device={name!r}: the port runs on 'auto' (the CUDA "
+                     "card) or 'cpu'")
+
+
+def make_envs(cfg, device):
+    """The train env (cfg.num_envs) and the eval env (cfg.eval_num_envs),
+    their reset draws seeded from cfg.seed and cfg.seed + 1."""
+    kw = {}
+    if "antmaze" in cfg.env.name:
+        kw = dict(reward_type=cfg.env.reward_type,
+                  random_init=cfg.env.random_init)
+    elif cfg.env.name.startswith("Panda"):
+        kw = dict(control_type=cfg.env.control_type)
+    env = make(cfg.env.name, num_envs=cfg.num_envs, device=device,
+               seed=cfg.seed, **kw)
+    eval_env = make(cfg.env.name, num_envs=cfg.eval_num_envs, device=device,
+                    seed=cfg.seed + 1, **kw)
+    return env, eval_env
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def signal_requests(logger):
+    """Install the loop's handlers for the duration: SIGUSR1 asks for a full
+    checkpoint at the next loop top, SIGTERM for a full checkpoint and a
+    stop, SIGINT exits. Yields the requests dict the handlers set; the
+    previous handlers come back on exit."""
+    requests = {"full_ckpt": False, "stop": False}
+
+    def _sigint(sig, frame):
+        logger.console("interrupted — exiting")
+        sys.exit(0)
+
+    def _sigusr1(sig, frame):
+        requests["full_ckpt"] = True
+
+    def _sigterm(sig, frame):
+        requests["full_ckpt"] = True
+        requests["stop"] = True
+
+    previous = {s: signal.signal(s, h) for s, h in (
+        (signal.SIGINT, _sigint), (signal.SIGUSR1, _sigusr1),
+        (signal.SIGTERM, _sigterm))}
+    try:
+        yield requests
+    finally:
+        for s, h in previous.items():
+            signal.signal(s, h)
+
+
+def main(argv=None):
+    """Train as the command line says; returns the final state."""
+    algo, resume, overrides = parse_args(
+        argv if argv is not None else sys.argv[1:])
+    cfg = C.Config(algo=C.algo_preset(algo)).override_strings(overrides)
+    device = resolve_device(cfg.device)
+    cfg = C.preprocess(cfg, if_ddiffpg=(algo.lower() == "ddiffpg"))
+    cfg = cfg.override_strings(overrides)   # CLI wins over per-env presets
+
+    logger = Logger(cfg.logdir, cfg.run_name, cfg.use_wandb,
+                    dataclasses.asdict(cfg))
+    logger.console(f"algo={cfg.algo.name} env={cfg.env.name} "
+                   f"num_envs={cfg.num_envs} max_step={cfg.max_step} "
+                   f"device={device}" + (
+                       f" ({torch.cuda.get_device_name(device)})"
+                       if device.type == "cuda" else ""))
+    env, eval_env = make_envs(cfg, device)
+    agent = make_agent(cfg.algo.name, env, cfg, device=device)
+    eval_gen = torch.Generator(device=device).manual_seed(cfg.seed + 1)
+    generators = {"agent": agent.generator, "env": env.env.generator,
+                  "eval_env": eval_env.env.generator, "eval": eval_gen}
+    with signal_requests(logger) as requests:
+        try:
+            return _loop(cfg, agent, eval_env, eval_gen, generators,
+                         requests, resume, logger, device)
+        finally:
+            logger.close()
+
+
+def _loop(cfg, agent, eval_env, eval_gen, generators, requests, resume,
+          logger, device):
+    ts = agent.init()
+    need_warmup = True
+    if resume:
+        ts, meta = ckpt.load(resume, ts)
+        for k, g in generators.items():
+            g.set_state(meta["generators"][k])
+        if meta.get("last_cluster") is not None:
+            agent.cluster_manager.scheduler.last_cluster = \
+                meta["last_cluster"]
+        if meta.get("lin_start") is not None:
+            agent._lin_start = meta["lin_start"]
+            agent._lin_total = meta["lin_total"]
+        if meta.get("light"):
+            # weights, optimizers and embeddings restored, the replay
+            # fresh: refill it and rebuild the clusters from new data
+            logger.console(f"resumed (light) from {resume}: replay is "
+                           "fresh, rewarming + reclustering")
+        else:
+            need_warmup = False
+            # re-stamp the walls of the restored density grid, so coverage
+            # counts free cells only
+            grid0 = agent._density_grid0.to(device)
+            ts.density_grid = torch.where(grid0 < 0, grid0, ts.density_grid)
+            agent.num_groups = int(meta.get("num_groups", 1))
+            agent.num_clusters = agent.num_groups - 1
+            logger.console(f"resumed from {resume} "
+                           f"(num_groups={meta.get('num_groups')})")
+
+    def timed(fn):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(device)
+        return out, time.perf_counter() - t0
+
+    def full_meta():
+        meta = {"num_groups": agent.num_groups,
+                "last_cluster": agent.cluster_manager.scheduler.last_cluster,
+                "generators": {k: g.get_state()
+                               for k, g in generators.items()}}
+        if hasattr(agent, "_lin_start"):
+            meta["lin_start"] = agent._lin_start
+            meta["lin_total"] = agent._lin_total
+        return meta
+
+    def save(name, skip, kind, step):
+        nbytes, secs = timed(lambda: ckpt.save(logger.dir / name, ts,
+                                               full_meta(), skip=skip))
+        logger.log({f"time/ckpt_{kind}_s": secs,
+                    f"time/ckpt_{kind}_bytes": nbytes}, step)
+        return logger.dir / name
+
+    def recluster(step):
+        nonlocal ts
+        ts, secs = timed(lambda: agent.update_cluster(ts))
+        st = agent.cluster_manager.dtw_stats
+        logger.log({"time/recluster_s": secs,
+                    "time/recluster_dtw_s": st["seconds"],
+                    "time/recluster_dtw_pairs": st["pairs"]}, step)
+
+    if need_warmup:
+        logger.console(f"warmup: {cfg.algo.warm_up} random steps x "
+                       f"{cfg.num_envs} envs")
+        ts, secs = timed(lambda: agent.warmup(ts))
+        logger.log({"time/warmup_s": secs}, int(ts.global_step))
+        logger.console(f"warmup done in {secs:.1f}s")
+        recluster(int(ts.global_step))
+        logger.console(f"initial clusters: {agent.num_clusters}")
+
+    global_steps = int(ts.global_step)
+    iter_t = 0
+    steps_per_iter = cfg.algo.horizon_len * cfg.num_envs
+    t_start = time.time()
+    t_last, s_last = t_start, global_steps
+    iter_s, iter_n = 0.0, 0
+    prof = None
+
+    def eval_actor(obs):
+        return agent.eval_actor(ts, obs, generator=eval_gen)
+
+    while global_steps < cfg.max_step:
+        if cfg.max_time and time.time() - t_start > cfg.max_time:
+            logger.console(f"max_time {cfg.max_time}s reached — stopping")
+            break
+        if requests["full_ckpt"]:
+            requests["full_ckpt"] = False
+            path = save(f"ckpt_{global_steps}_full.pt", (), "full",
+                        global_steps)
+            logger.console(f"signal: full checkpoint -> {path}")
+        if requests["stop"]:
+            logger.console("SIGTERM: stopping after full checkpoint")
+            break
+        if iter_t % cfg.eval_freq == 0:
+            if iter_t > 0:
+                recluster(global_steps)
+                gc = agent.last_goal_counts
+                logger.console(
+                    f"recluster -> {agent.num_clusters} modes"
+                    + (f" (success trajs per goal: {gc})" if gc else ""))
+                logger.log({f"replay/goal{g}_successes": float(n)
+                            for g, n in gc.items()}
+                           | {"replay/num_modes": float(agent.num_clusters)},
+                           global_steps)
+            (metrics, _), secs = timed(
+                lambda: eval_rollout(eval_env, eval_actor))
+            logger.log(metrics | {"time/eval_s": secs}, global_steps)
+            logger.console(
+                f"iter {iter_t} steps {global_steps}: "
+                f"eval return {metrics['eval/return']:.2f} "
+                f"success {metrics['eval/success_rate']:.2f} "
+                f"len {metrics['eval/episode_length']:.0f}")
+            if iter_t % (cfg.eval_freq * cfg.ckpt_freq_mult) == 0 and iter_t:
+                skip = () if cfg.ckpt_full else ("replay",)
+                save(f"ckpt_{global_steps}.pt", skip,
+                     "full" if cfg.ckpt_full else "light", global_steps)
+
+        if iter_t == 20 and cfg.profile:
+            acts = [torch.profiler.ProfilerActivity.CPU] + (
+                [torch.profiler.ProfilerActivity.CUDA]
+                if device.type == "cuda" else [])
+            prof = torch.profiler.profile(activities=acts)
+            prof.start()
+        t0 = time.perf_counter()
+        ts, logs = agent.train_iter(ts, steps=global_steps)
+        iter_s += time.perf_counter() - t0
+        iter_n += 1
+        if iter_t == 22 and prof is not None:
+            _sync(device)
+            prof.stop()
+            (logger.dir / "profile").mkdir(exist_ok=True)
+            prof.export_chrome_trace(str(logger.dir / "profile"
+                                         / "trace.json"))
+            prof = None
+            logger.console(f"profiler trace -> {logger.dir}/profile")
+        global_steps += steps_per_iter
+        iter_t += 1
+
+        if iter_t % cfg.log_freq == 0:
+            # one bulk fetch (it waits for the iterations' device work)
+            t0 = time.perf_counter()
+            vals = torch.stack([torch.as_tensor(v, dtype=torch.float32)
+                                .to(device) for v in logs.values()]).tolist()
+            iter_s += time.perf_counter() - t0
+            logs = dict(zip(logs, vals))
+            logs["global_steps"] = global_steps
+            logs["time/train_iter_s"] = iter_s / iter_n
+            iter_s, iter_n = 0.0, 0
+            if time.time() - t_last > 30:
+                sps = (global_steps - s_last) / (time.time() - t_last)
+                logs["train/env_steps_per_sec"] = sps
+                logger.console(
+                    f"iter {iter_t} steps {global_steps} "
+                    f"({sps:,.0f} steps/s) return "
+                    f"{logs.get('train/return', float('nan')):.2f}")
+                t_last, s_last = time.time(), global_steps
+            logger.log(logs, global_steps)
+
+    save("ckpt_final.pt", (), "final", global_steps)
+    logger.console("done")
+    return ts
+
+
+if __name__ == "__main__":
+    main()

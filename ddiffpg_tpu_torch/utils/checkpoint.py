@@ -1,0 +1,93 @@
+"""Full train-state checkpoints of the port's `DDiffPGState`.
+
+Counterpart of `ddiffpg_tpu/utils/checkpoint.py:save` and `load`. Every
+tensor of the state (the modules' parameters and buffers, the adam states,
+the replay tables, the env state, obs, stats, `global_step` and the
+density grid) is moved to the CPU and written with `torch.save`, keyed by
+its path in the state (`critics.weight.0`, `replay.obs`, ...), beside the
+host meta the caller passes (the train loop's: `num_groups`, the
+scheduler's `last_cluster`, `lin_start`/`lin_total` and the generators'
+states, which stand in for the JAX state's key). `skip` names top-level
+fields left out: `("replay",)` writes a light checkpoint, whose load keeps
+the example state's fresh replay. The write is atomic (a temporary file,
+then a rename). The JAX package's pickles hold JAX treedefs and are not
+read here; `utils/convert.py:ddiffpg_state` carries a JAX state across.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from pathlib import Path
+
+import torch
+
+
+def leaves(x, prefix: str = ""):
+    """(path, tensor) for every tensor of a state: dataclass fields,
+    NamedTuple fields, list items, and a module's state_dict (parameters
+    and buffers, sharing their storage)."""
+    if isinstance(x, torch.Tensor):
+        yield prefix, x
+    elif isinstance(x, torch.nn.Module):
+        for k, v in x.state_dict(keep_vars=True).items():
+            yield f"{prefix}.{k}", v
+    elif dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            yield from leaves(getattr(x, f.name), _join(prefix, f.name))
+    elif isinstance(x, tuple) and hasattr(x, "_fields"):
+        for k in x._fields:
+            yield from leaves(getattr(x, k), _join(prefix, k))
+    elif isinstance(x, (list, tuple)):
+        for i, v in enumerate(x):
+            yield from leaves(v, _join(prefix, str(i)))
+    elif x is not None:
+        raise TypeError(f"{prefix}: cannot checkpoint {type(x).__name__}")
+
+
+def _join(prefix: str, name: str) -> str:
+    return f"{prefix}.{name}" if prefix else name
+
+
+def _kept(path: str, skip) -> bool:
+    return path.split(".", 1)[0] not in skip
+
+
+def save(path, state, host_meta: dict | None = None, skip: tuple = ()) -> int:
+    """Write `state` (less the top-level fields in `skip`) and `host_meta`
+    to `path`; returns the file's size in bytes."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tensors = {k: v.detach().cpu() for k, v in leaves(state)
+               if _kept(k, skip)}
+    meta = dict(host_meta or {})
+    if skip:
+        meta["light"] = True
+    tmp = path.with_suffix(".tmp")
+    torch.save({"tensors": tensors, "host_meta": meta, "skip": list(skip)},
+               tmp)
+    tmp.replace(path)
+    return path.stat().st_size
+
+
+@torch.no_grad()
+def load(path, example_state):
+    """Restore a checkpoint into `example_state` in place, on its devices
+    and dtypes (shapes must match); the fields skipped at save time keep
+    their values. Returns (state, host_meta)."""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    skip = blob["skip"]
+    tensors = blob["tensors"]
+    want = {k: v for k, v in leaves(example_state) if _kept(k, skip)}
+    if set(want) != set(tensors):
+        missing = sorted(set(want) - set(tensors))
+        extra = sorted(set(tensors) - set(want))
+        raise ValueError(f"checkpoint {path} does not fit the state: "
+                         f"missing {missing[:5]}, unexpected {extra[:5]}")
+    for k, dst in want.items():
+        src = tensors[k]
+        if src.shape != dst.shape or src.dtype != dst.dtype:
+            raise ValueError(f"{k}: checkpoint {src.dtype} "
+                             f"{tuple(src.shape)}, state {dst.dtype} "
+                             f"{tuple(dst.shape)}")
+        dst.copy_(src)
+    return example_state, blob["host_meta"]

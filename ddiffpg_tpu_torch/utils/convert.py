@@ -178,3 +178,14 @@ def ddiffpg_state(agent, jstate, env_state=None):
     ts.global_step = _t(jstate.global_step, np.int64, dev)
     ts.density_grid = _t(np.asarray(jstate.density_grid)[0], np.int32, dev)
     return ts
+
+
+def cluster_state(cm, jcm):
+    """A JAX `ClusterManager`'s host state -> the port's `cm` (a
+    `modes.cluster.ClusterManager`): the DTW cache, the Q-scheduler's last
+    clusters and the state of the sampling `random.Random`. Plain Python
+    objects only, so this needs no JAX either."""
+    cm.cache = dict(jcm.cache)
+    cm.scheduler.last_cluster = [list(c) for c in jcm.scheduler.last_cluster]
+    cm.rng.setstate(jcm.rng.getstate())
+    return cm

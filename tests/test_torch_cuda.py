@@ -1,6 +1,7 @@
-"""The CUDA substep kernel on the card, against its plain PyTorch version,
-and the DDiffPG agent on the card: its env steps through the kernel, and
-one update pass against the same pass on the CPU.
+"""The CUDA substep and DTW kernels on the card, against their plain
+PyTorch versions, and the DDiffPG agent on the card: its env steps through
+the kernel, one update pass against the same pass on the CPU, and a
+recluster identical on the card and the CPU.
 
 Needs an NVIDIA card and nvcc, and no JAX. Skipped without a card. On the
 card's machine (no JAX, so without the suite's conftest):
@@ -227,3 +228,57 @@ def test_update_once_card_matches_cpu(card, G):
         mask[1:G] = mask[0] & (torch.arange(S, device=card) % 2 == 0)
         ep.set_groups(ts.replay, mask, [0] * G + [-1] * (agent.G_max - G))
     chip_smoke.card_vs_cpu(agent, ts, agent.cfg, G)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [2, 3])
+@pytest.mark.parametrize("L", [1, 64, 128, 256, 512])
+def test_dtw_kernel_matches_plain(card, L, D):
+    """The DTW kernel against its plain version on the card, tracks padded
+    to L (the JAX package's length buckets and the edge lengths): within
+    1e-6 relative (both round op by op alike, so bitwise is expected)."""
+    from ddiffpg_tpu_torch.ops import dtw, dtw_cuda
+
+    rng = np.random.RandomState(L + D)
+    N, P = 24, 300
+    stack = np.cumsum(rng.randn(N, L, D), axis=1).astype(np.float32)
+    lens = rng.randint(1, L + 1, N).astype(np.int32)
+    lens[:2] = (1, L)
+    ia = rng.randint(0, N, P).astype(np.int32)
+    ib = rng.randint(0, N, P).astype(np.int32)
+    ia[:3], ib[:3] = (0, 0, 1), (0, 1, 1)
+    args = [torch.tensor(a, device=card)
+            for a in (stack, stack, lens, lens, ia, ib)]
+    kern = dtw_cuda.get_kernel(card)
+    before = kern.launches
+    got = dtw.dtw_batch_gather(*args)
+    want = dtw.dtw_wavefront(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    assert float(got[0]) == 0.0 and float(got[2]) == 0.0
+
+
+@pytest.mark.cuda
+def test_recluster_card_matches_cpu(card):
+    """chip_smoke's two routes (16 successes, 16 failures): a
+    ClusterManager on the card and one on the CPU give the same
+    ClusterResult."""
+    from ddiffpg_tpu_torch.modes.cluster import ClusterManager
+
+    rng = np.random.RandomState(0)
+    S, L = 40, 120
+    traj_id = np.full(S, -1, np.int64)
+    length = np.zeros(S, np.int64)
+    success = np.zeros(S, np.int64)
+    tracks = np.zeros((S, L + 1, 2), np.float32)
+    for k in range(32):
+        n = int(rng.randint(60, L + 1))
+        tr = chip_smoke.route_track(rng, n, (4.0, -4.0)[k % 2]) if k < 16 \
+            else chip_smoke.failure_track(rng, n)
+        traj_id[k], length[k], success[k] = k, n, int(k < 16)
+        tracks[k, : n + 1] = tr
+    res = [ClusterManager(capacity=24, threshold=50.0, device=d).recluster(
+        traj_id, length, success, tracks) for d in (card, "cpu")]
+    assert res[0].num_groups == 3
+    assert chip_smoke.same_result(*res)

@@ -114,12 +114,14 @@ def test_collect_records_and_auto_reset():
 
 
 def test_port_runs_without_jax():
-    """Importing every module of the port and chip_smoke, then building and
-    stepping antmaze-v1 and PandaDrawerMultiJoints-v3 on the CPU, and
-    building the DDiffPG agent there and running one small train
-    iteration, never loads jax, jaxlib, flax or the JAX package (the
-    card's machine has no JAX, and the port keeps its own copies of what
-    it needs)."""
+    """Importing every module of the port (the entry point, the recluster
+    and its native linkage, the DTW kernel's binding, the eval and the
+    logger among them) and chip_smoke, then building and stepping
+    antmaze-v1 and PandaDrawerMultiJoints-v3 on the CPU, and building the
+    DDiffPG agent there, running one small train iteration, a recluster
+    and a checkpoint's save and load, never loads jax, jaxlib, flax or the
+    JAX package (the card's machine has no JAX, and the port keeps its own
+    copies of what it needs)."""
     code = (
         "import importlib, pkgutil, sys, torch\n"
         "import ddiffpg_tpu_torch\n"
@@ -146,6 +148,19 @@ def test_port_runs_without_jax():
         "agent = make_agent('DDiffPG', env, cfg, device='cpu')\n"
         "ts, logs = agent.train_iter(agent.init(), steps=0)\n"
         "assert all(torch.isfinite(v) for v in logs.values()), logs\n"
+        "ts = agent.update_cluster(ts)\n"
+        "import tempfile\n"
+        "from ddiffpg_tpu_torch.utils import checkpoint\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    checkpoint.save(d + '/c.pt', ts, {'num_groups': 1})\n"
+        "    checkpoint.load(d + '/c.pt', agent.init())\n"
+        "for m in ('ddiffpg_tpu_torch.train',\n"
+        "          'ddiffpg_tpu_torch.modes._native',\n"
+        "          'ddiffpg_tpu_torch.modes.cluster',\n"
+        "          'ddiffpg_tpu_torch.ops.dtw_cuda',\n"
+        "          'ddiffpg_tpu_torch.agents.evaluation',\n"
+        "          'ddiffpg_tpu_torch.utils.logger'):\n"
+        "    assert m in sys.modules, m\n"
         "bad = sorted(m for m in ('jax', 'jaxlib', 'flax', 'ddiffpg_tpu')\n"
         "             if m in sys.modules)\n"
         "assert not bad, bad\n"
