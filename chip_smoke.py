@@ -15,7 +15,8 @@ the device from torch.profiler windows (busy time and idle share). Then it
 trains: stock DDiffPG on antmaze-v1 at 1024 envs (warm-up, timed train
 iterations through the kernel, their host split and device time, three
 live groups, one update pass on the card against the CPU). Last, the
-loop: the CUDA DTW kernel against its plain version and both timed, a
+loop: the CUDA DTW kernel (a warp a pair) bitwise against its plain
+version, ptxas' report of each template and both timed, a
 recluster of 1,000 synthetic successes on antmaze-v1's two corridors at
 the stock size (full, then incremental, then two train iterations at the
 groups found; a subset reclustered on the card and on the CPU alike), and
@@ -89,8 +90,9 @@ TRAIN_ITERS = 10         # timed train iterations, after 2 untimed
 SPLIT_REPS = 5           # calls per part of the host split (median)
 TRAIN_GROUPS = 3         # live groups of the G > 1 check
 DTW_PAIRS = 4096         # pairs of the DTW kernel's check and timing
-# kernel vs plain DTW: both round op by op alike (-fmad=false), so only
-# a ulp or so may part them
+# kernel vs plain DTW: both round op by op alike (-fmad=false) and both
+# square roots round correctly, so phase 10a asks for bitwise equality,
+# and for this relative bound beside it
 DTW_TOL = 1e-6
 N_SUCCESS = 1000         # successes in the stock-size recluster, 500 a route
 N_NEW = 64               # new successes before the incremental recluster
@@ -818,28 +820,41 @@ def dtw_bound(args):
 
 
 def dtw_phase(smi: str):
-    """10a: the DTW kernel against its plain version on DTW_PAIRS pairs,
-    then both timed (CUDA events) and the bound. Returns the record."""
+    """10a: the DTW kernel against its plain version on DTW_PAIRS pairs
+    (bitwise), ptxas' report of each template built and the launch
+    geometry, then both timed (CUDA events) and the bound. Returns the
+    record."""
     t0 = time.time()
     kern = dtw_cuda.get_kernel("cuda")
-    ptxas = dtw_cuda.build().with_suffix(".log").read_text().splitlines()
-    log("10 loop", f"DTW kernel loaded in {time.time() - t0:.1f} s; "
-        + " ".join(line.strip() for line in ptxas
-                   if "registers" in line or "spill" in line))
+    report = dtw_cuda.ptxas_report(
+        dtw_cuda.build().with_suffix(".log").read_text())
+    log("10 loop", f"DTW kernel loaded in {time.time() - t0:.1f} s")
+    for (R, D), r in sorted(report.items()):
+        log("10 loop", f"DTW kernel R={R} Dx={D}: {r.get('registers')} "
+            f"registers, {r.get('stack')} bytes stack frame, "
+            f"{r.get('spill_stores')} / {r.get('spill_loads')} bytes spill "
+            "stores / loads")
     args = dtw_inputs(5, 640, DTW_PAIRS)
+    L, D = args[0].shape[1:]
+    warps, R, shared = dtw_cuda.launch_geometry(L, D)
+    if (R, D) not in report or "registers" not in report[(R, D)]:
+        raise RuntimeError(f"no ptxas report of the DTW kernel at R={R}, "
+                           f"Dx={D}")
+    log("10 loop", f"DTW launch at L={L}, Dx={D}: {warps} warps (pairs) a "
+        f"block, R={R} rows a lane at most, {shared} shared bytes a block")
     got = dtw.dtw_batch_gather(*args)
     want = dtw.dtw_wavefront(*args)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     rel = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
+    bitwise = bool(torch.equal(got, want))
     edge = got[-8:].tolist()
-    ok = rel <= DTW_TOL and bool(torch.isfinite(got).all()) \
+    ok = bitwise and rel <= DTW_TOL and bool(torch.isfinite(got).all()) \
         and edge[0] == 0.0 and edge[-1] == 0.0
     log("10 loop", f"DTW kernel vs plain on {args[4].numel()} pairs "
         f"(lengths 300-500 and 1, 2, 500): max |diff| {err:.3e}, max "
-        f"relative {rel:.3e} (bound {DTW_TOL:g}), bitwise "
-        f"{bool(torch.equal(got, want))}; edge pairs {edge} "
-        f"{'ok' if ok else 'FAIL'}")
+        f"relative {rel:.3e} (bound {DTW_TOL:g}), bitwise {bitwise}; edge "
+        f"pairs {edge} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise RuntimeError("the DTW kernel disagrees with its plain version")
     ms = cuda_ms(lambda: kern(*args), 20)
@@ -848,10 +863,13 @@ def dtw_phase(smi: str):
     P = args[4].numel()
     log("10 loop", f"DTW of {P} pairs: kernel {ms:.4f} ms "
         f"({P / ms * 1e3:,.0f} pairs/s), plain PyTorch {plain_ms:.2f} ms, "
-        f"bound {bound[0]:.5f} ms ({bound[1]}, {bound[2]:.4e} flops) "
-        f"[{smi}]")
-    return {"pairs": P, "max_abs_err": err, "max_rel_err": rel, "ms": ms,
-            "plain_ms": plain_ms, "bound": bound}
+        f"bound {bound[0]:.5f} ms ({bound[1]}, {bound[2]:.4e} flops; "
+        f"{bound[0] / ms:.1%} of it reached) [{smi}]")
+    return {"pairs": P, "max_abs_err": err, "max_rel_err": rel,
+            "bitwise": bitwise, "ms": ms, "plain_ms": plain_ms,
+            "bound": bound, "geometry": {"warps": warps, "R": R,
+                                         "shared_bytes": shared},
+            "ptxas": {f"R{R}_D{D}": r for (R, D), r in report.items()}}
 
 
 def fill_plans(rng, n_env: int, n_success: int, steps: int):

@@ -60,11 +60,13 @@ def check_inputs(stack_a, stack_b, la_u, lb_u, ia, ib):
         raise ValueError(f"ia {tuple(ia.shape)} and ib {tuple(ib.shape)}")
 
 
-def dtw_wavefront(stack_a: torch.Tensor, stack_b: torch.Tensor,
-                  la_u: torch.Tensor, lb_u: torch.Tensor, ia: torch.Tensor,
-                  ib: torch.Tensor) -> torch.Tensor:
-    """The plain version: distances [P] between stack_a[ia[p], :la_u[ia[p]]]
-    and stack_b[ib[p], :lb_u[ib[p]]], on the stacks' device."""
+def dtw_terminal(stack_a: torch.Tensor, stack_b: torch.Tensor,
+                 la_u: torch.Tensor, lb_u: torch.Tensor, ia: torch.Tensor,
+                 ib: torch.Tensor) -> torch.Tensor:
+    """The terminal cells D[la-1, lb-1] [P] of the pairs' tables (the
+    squared distances), by the plain wavefront. A NaN in a pair's points
+    gives NaN: `torch.minimum` propagates it, as `jnp.minimum` does in the
+    JAX package (and the kernel's minimum)."""
     check_inputs(stack_a, stack_b, la_u, lb_u, ia, ib)
     P = ia.shape[0]
     dev = stack_a.device
@@ -101,7 +103,17 @@ def dtw_wavefront(stack_a: torch.Tensor, stack_b: torch.Tensor,
         cur = torch.where(valid, cost + best, _INF)
         acc = torch.where(target == d, cur.gather(1, last_row)[:, 0], acc)
         dm1, dm2 = cur, dm1
-    return torch.sqrt(acc)
+    return acc
+
+
+def dtw_wavefront(stack_a: torch.Tensor, stack_b: torch.Tensor,
+                  la_u: torch.Tensor, lb_u: torch.Tensor, ia: torch.Tensor,
+                  ib: torch.Tensor) -> torch.Tensor:
+    """The plain version: distances [P] between stack_a[ia[p], :la_u[ia[p]]]
+    and stack_b[ib[p], :lb_u[ib[p]]], on the stacks' device: the square
+    root of `dtw_terminal`. (On the card `torch.sqrt` rounds correctly, as
+    the kernel's `sqrtf`; on the CPU its vector path may miss by an ulp.)"""
+    return torch.sqrt(dtw_terminal(stack_a, stack_b, la_u, lb_u, ia, ib))
 
 
 def dtw_batch_gather(stack_a: torch.Tensor, stack_b: torch.Tensor,

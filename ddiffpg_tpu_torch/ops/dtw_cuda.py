@@ -12,6 +12,7 @@ for, so the package imports on a machine with neither `nvcc` nor a card.
 from __future__ import annotations
 
 import ctypes
+import re
 from pathlib import Path
 
 import torch
@@ -24,8 +25,41 @@ SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "dtw.cu"
 # the plain version (ops/dtw.py:dtw_wavefront) op by op
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+ROWS = (1, 2, 4, 8, 16)   # the kernel's templates of R, rows a lane
+WARPS = 4                 # pairs of a block, one warp each
 _KERNELS: dict = {}     # device -> DtwKernel
 _LIB = None
+
+
+def launch_geometry(L: int, D: int) -> tuple[int, int, int]:
+    """(warps a block, R, shared bytes a block) of a launch on tracks
+    padded to L points of D coordinates: R is the least template with
+    32 R >= L (a pair of length la uses ceil(la / 32) rows of it), and
+    each warp keeps its b in shared memory. L <= MAX_LEN."""
+    R = next(r for r in ROWS if 32 * r >= L)
+    return WARPS, R, WARPS * D * L * 4
+
+
+def ptxas_report(log: str) -> dict:
+    """ptxas' `-v` lines of a build, by template: (R, D) -> registers,
+    stack frame, spill stores and loads (bytes)."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"dtw_kernelILi(\d+)ELi(\d+)E", line)
+        if m and ("Compiling entry" in line or "Function properties" in line):
+            cur = out.setdefault((int(m[1]), int(m[2])), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m[1]), spill_stores=int(m[2]),
+                       spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m[1])
+    return out
 
 
 def build() -> Path:
@@ -38,14 +72,16 @@ def _load():
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
-        lib.dtw_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
+        lib.dtw_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         lib.dtw_launch.restype = ctypes.c_int
         lib.dtw_error_string.argtypes = [ctypes.c_int]
         lib.dtw_error_string.restype = ctypes.c_char_p
-        if (lib.dtw_max_len(), lib.dtw_max_dim()) != (MAX_LEN, MAX_DIM):
-            raise RuntimeError("csrc/dtw.cu's MAX_L / MAX_D differ from "
-                               "ops/dtw.py's MAX_LEN / MAX_DIM")
+        if (lib.dtw_max_len(), lib.dtw_max_dim()) != (MAX_LEN, MAX_DIM) \
+                or lib.dtw_max_warps() < WARPS:
+            raise RuntimeError("csrc/dtw.cu's MAX_L / MAX_D / MAX_WARPS "
+                               "differ from ops/dtw.py's MAX_LEN / MAX_DIM "
+                               "and WARPS")
         _LIB = lib
     return _LIB
 
@@ -53,8 +89,9 @@ def _load():
 class DtwKernel:
     """DTW distances on the card: (stack_a [Na, L, Dx], stack_b [Nb, L,
     Dx] float32, la_u [Na], lb_u [Nb], ia [P], ib [P] int32) CUDA tensors
-    -> [P] float32, one block of round_up(L, 32) threads a pair.
-    `launches` counts the launches made through this object."""
+    -> [P] float32, one warp a pair, WARPS pairs a block
+    (`launch_geometry`). `launches` counts the launches made through this
+    object."""
 
     def __init__(self, device: str | torch.device = "cuda"):
         self.device = torch.device(device)
@@ -76,8 +113,8 @@ class DtwKernel:
         out = torch.empty((P,), dtype=torch.float32, device=self.device)
         if P == 0:
             return out
-        # lengths in [1, L] and indices in range, or the kernel reads out of
-        # its shared arrays: one host wait a launch
+        # lengths in [1, L] and indices in range, or the kernel reads past
+        # its tracks and its shared copy of b: one host wait a launch
         lo_hi = torch.stack([la_u.min(), lb_u.min(), -la_u.max(),
                              -lb_u.max(), ia.min(), ib.min(), -ia.max(),
                              -ib.max()]).tolist()
@@ -85,12 +122,12 @@ class DtwKernel:
         if any(v < w for v, w in zip(lo_hi, lim)):
             raise ValueError("DTW lengths outside [1, L] or pair indices "
                              "outside the stacks")
-        threads = (L + 31) // 32 * 32
+        warps, R, _ = launch_geometry(L, D)
         stream = torch.cuda.current_stream(self.device).cuda_stream
         err = self._lib.dtw_launch(
             stack_a.data_ptr(), stack_b.data_ptr(), la_u.data_ptr(),
             lb_u.data_ptr(), ia.data_ptr(), ib.data_ptr(), out.data_ptr(),
-            P, L, D, threads, stream)
+            P, L, D, R, warps, stream)
         if err:
             raise RuntimeError("DTW launch failed: "
                                + self._lib.dtw_error_string(err).decode())

@@ -230,33 +230,65 @@ def test_update_once_card_matches_cpu(card, G):
     chip_smoke.card_vs_cpu(agent, ts, agent.cfg, G)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("D", [2, 3])
-@pytest.mark.parametrize("L", [1, 64, 128, 256, 512])
-def test_dtw_kernel_matches_plain(card, L, D):
-    """The DTW kernel against its plain version on the card, tracks padded
-    to L (the JAX package's length buckets and the edge lengths): within
-    1e-6 relative (both round op by op alike, so bitwise is expected)."""
-    from ddiffpg_tpu_torch.ops import dtw, dtw_cuda
-
-    rng = np.random.RandomState(L + D)
-    N, P = 24, 300
+def _dtw_args(L, D, N, P, seed, device):
+    rng = np.random.RandomState(seed)
     stack = np.cumsum(rng.randn(N, L, D), axis=1).astype(np.float32)
     lens = rng.randint(1, L + 1, N).astype(np.int32)
     lens[:2] = (1, L)
     ia = rng.randint(0, N, P).astype(np.int32)
     ib = rng.randint(0, N, P).astype(np.int32)
-    ia[:3], ib[:3] = (0, 0, 1), (0, 1, 1)
-    args = [torch.tensor(a, device=card)
+    k = min(P, 3)
+    ia[:k], ib[:k] = (0, 0, 1)[:k], (0, 1, 1)[:k]
+    return [torch.tensor(a, device=device)
             for a in (stack, stack, lens, lens, ia, ib)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [2, 3])
+@pytest.mark.parametrize("L", [1, 2, 31, 32, 33, 64, 128, 256, 512])
+def test_dtw_kernel_matches_plain(card, L, D):
+    """The DTW kernel against its plain version on the card, tracks padded
+    to L (every template of rows a lane: R = 1, 2, 4, 8, 16 at L = 32, 64,
+    128, 256, 512, and the lengths about a warp): bitwise equal (both
+    round op by op alike, and both square roots round correctly)."""
+    from ddiffpg_tpu_torch.ops import dtw, dtw_cuda
+
+    args = _dtw_args(L, D, 24, 300, L + D, card)
     kern = dtw_cuda.get_kernel(card)
     before = kern.launches
     got = dtw.dtw_batch_gather(*args)
     want = dtw.dtw_wavefront(*args)
     torch.cuda.synchronize()
     assert kern.launches == before + 1
-    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
     assert float(got[0]) == 0.0 and float(got[2]) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 3, 4 * 37 + 1, 4 * 37 + 3])
+def test_dtw_kernel_nan_and_ragged_grid(card, P):
+    """P not a multiple of the warps a block (the last block's idle warps
+    return at once), and a NaN coordinate in track 3: NaN for every pair
+    that holds it, as the plain version (torch.minimum) gives; the other
+    pairs bitwise the plain version's."""
+    from ddiffpg_tpu_torch.ops import dtw, dtw_cuda
+
+    args = _dtw_args(200, 2, 12, P, P, card)
+    args[0][3, 7, 1] = args[1][3, 7, 1] = float("nan")
+    args[2][3] = args[3][3] = 200
+    args[4][-1] = 3
+    assert P % dtw_cuda.launch_geometry(200, 2)[0]
+    kern = dtw_cuda.get_kernel(card)
+    before = kern.launches
+    got = dtw.dtw_batch_gather(*args)
+    want = dtw.dtw_wavefront(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    nan = (args[4] == 3) | (args[5] == 3)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(torch.isnan(want), nan)
+    assert torch.equal(got[~nan], want[~nan])
 
 
 @pytest.mark.cuda

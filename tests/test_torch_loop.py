@@ -34,6 +34,7 @@ from ddiffpg_tpu_torch.agents.evaluation import eval_rollout  # noqa: E402
 from ddiffpg_tpu_torch.envs import make  # noqa: E402
 from ddiffpg_tpu_torch.physics import maze  # noqa: E402
 from ddiffpg_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
+from tests.jax_caches import fresh_structure_cache  # noqa: E402,F401
 
 EPISODE = 8
 TINY = ["device=cpu", "num_envs=8", "eval_num_envs=4", "algo.warm_up=8",

@@ -28,6 +28,7 @@ from ddiffpg_tpu_torch.physics.builder import (BodySpec, GeomSpec,  # noqa: E402
 from ddiffpg_tpu_torch.physics.panda import build_panda_scene  # noqa: E402
 from ddiffpg_tpu_torch.physics.substep import (  # noqa: E402
     SubstepConstants, substep_reference)
+from tests.jax_caches import fresh_structure_cache  # noqa: E402,F401
 
 TASKS = ["Reach", "PegInsertion", "DrawerMulti", "Cabinet"]
 
