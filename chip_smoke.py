@@ -22,8 +22,18 @@ the stock size (full, then incremental, then two train iterations at the
 groups found; a subset reclustered on the card and on the CPU alike), and
 the entry point `ddiffpg_tpu_torch.train.main` with the stock config
 (warm-up, reclusters, two evals, a light and the final checkpoint, which
-must reload bit for bit). It prints one line per phase, JSON lines
-`{"train": {...}}`, `{"loop": {...}}` and `{"kernels": [...]}`, the
+must reload bit for bit). Then every other env of the package: the five
+other mazes' builds (29-41 wall boxes) against the plain version with
+random states and ants against that maze's walls, timed with their bounds,
+their collects at 4096 envs and every goal probed, stock DDiffPG trained on
+antmaze-v3 (700-step episodes) and a recluster of 700-step successes to
+antmaze-v2's two goals (phase 11); Panda's `ee` control (the IK's targets
+on the card against the CPU, ee collects of DrawerMulti and Reach with the
+host split of a step, Reach trained with `env.control_type=ee`, a recluster
+of 3-D ee tracks, phase 12); a pointmaze-v1 collect and the entry point on
+antmaze-v2 and pointmaze-v2, each logging a success rate per goal (phase
+13). It prints one line per phase, JSON lines `{"train": {...}}`,
+`{"loop": {...}}`, `{"envs": {...}}` and `{"kernels": [...]}`, the
 card's name and power limit as nvidia-smi gives them, and last
 `{"ok": true, "device": {...}}`. It exits non-zero, printing
 no result, when there is no CUDA card, when the port cannot be imported, or
@@ -56,7 +66,7 @@ from ddiffpg_tpu_torch.envs.panda import PandaTaskEnv
 from ddiffpg_tpu_torch.models.diffusion import DiffusionPolicy
 from ddiffpg_tpu_torch.modes import _native
 from ddiffpg_tpu_torch.ops import dtw, dtw_cuda
-from ddiffpg_tpu_torch.physics import engine
+from ddiffpg_tpu_torch.physics import engine, maze
 from ddiffpg_tpu_torch.physics import quat as Q
 from ddiffpg_tpu_torch.physics.panda import (JOINT_LIMIT_HI, JOINT_LIMIT_LO,
                                              build_panda_scene)
@@ -482,11 +492,12 @@ def replay_add_bytes(E: int, L: int, D: int, A: int, G: int, NG: int = 1):
     return step, finisher, jax_step
 
 
-def train_config() -> Config:
-    """The stock DDiffPG config on antmaze-v1 (`algo_preset` then
-    `preprocess`), at TRAIN_ENVS envs, seed 0."""
+def stock_config(name: str, **over) -> Config:
+    """The stock DDiffPG config for env `name` (`algo_preset`, then
+    `preprocess`), at TRAIN_ENVS envs, seed 0, with `over` applied
+    before `preprocess`."""
     cfg = Config(algo=algo_preset("ddiffpg")).override(
-        **{"env.name": "antmaze-v1"})
+        **{"env.name": name, **over})
     return preprocess(cfg).override(num_envs=TRAIN_ENVS, seed=0)
 
 
@@ -568,7 +579,7 @@ def train_phase(smi: str):
     a profiler window, then three live groups with rows >= 3 untouched and
     one update pass on the card against the CPU (neither timed). Returns
     (the train record, the kernel's launches in the timed window)."""
-    cfg = train_config()
+    cfg = stock_config("antmaze-v1")
     torch.cuda.reset_peak_memory_stats()
     env = make("antmaze-v1", num_envs=TRAIN_ENVS,
                random_init=cfg.env.random_init, device="cuda", seed=0)
@@ -719,18 +730,26 @@ def kernel_entry(name: str, launches: int, err: float, ms: float,
 
 # ------------------------------------------------------------ 10. the loop
 
+def path_track(rng, n: int, corners, wander: float,
+               noise: float) -> np.ndarray:
+    """n + 1 points evenly along the polyline `corners` (its width is Dx),
+    with a random walk of step `wander` and point noise `noise` added."""
+    corners = np.asarray(corners, np.float64)
+    seg = np.linalg.norm(np.diff(corners, axis=0), axis=1)
+    at = np.concatenate([[0], np.cumsum(seg)])
+    s = np.linspace(0.0, seg.sum(), n + 1)
+    D = corners.shape[1]
+    pts = np.stack([np.interp(s, at, corners[:, d]) for d in range(D)], 1)
+    walk = np.cumsum(rng.randn(n + 1, D), axis=0) * wander
+    return pts + walk + noise * rng.randn(n + 1, D)
+
+
 def route_track(rng, n: int, y: float) -> np.ndarray:
     """n + 1 xy points of an antmaze-v1 success: from the reset cell (0, 0)
     up or down the corridor at y = +-4, around MAZE_v1's central wall, to
-    the goal (-8, 0), evenly along the path, with a slow wander and point
-    noise."""
-    corners = np.array([[0.0, 0.0], [0.0, y], [-8.0, y], [-8.0, 0.0]])
-    seg = np.linalg.norm(np.diff(corners, axis=0), axis=1)
-    s = np.linspace(0.0, seg.sum(), n + 1)
-    x = np.interp(s, np.concatenate([[0], np.cumsum(seg)]), corners[:, 0])
-    yy = np.interp(s, np.concatenate([[0], np.cumsum(seg)]), corners[:, 1])
-    wander = np.cumsum(rng.randn(n + 1, 2), axis=0) * 0.02
-    return np.stack([x, yy], 1) + wander + 0.05 * rng.randn(n + 1, 2)
+    the goal (-8, 0), with a slow wander and point noise."""
+    return path_track(rng, n, [[0.0, 0.0], [0.0, y], [-8.0, y], [-8.0, 0.0]],
+                      0.02, 0.05)
 
 
 def failure_track(rng, n: int) -> np.ndarray:
@@ -977,7 +996,7 @@ def recluster_phase(smi: str):
     beside it the recluster of a subset on the card and on the CPU.
     Returns (the record, the DTW kernel's launches in the two
     reclusters)."""
-    cfg = train_config()
+    cfg = stock_config("antmaze-v1")
     env = make("antmaze-v1", num_envs=TRAIN_ENVS,
                random_init=cfg.env.random_init, device="cuda", seed=0)
     agent = make_agent("DDiffPG", env, cfg)
@@ -1059,7 +1078,7 @@ def loop_phase(smi: str):
     from ddiffpg_tpu_torch import train
     from ddiffpg_tpu_torch.utils import checkpoint as ckpt
 
-    cfg = train_config()
+    cfg = stock_config("antmaze-v1")
     warm, iters = cfg.algo.warm_up, 4
     made, make_envs = [], train.make_envs
 
@@ -1122,6 +1141,436 @@ def loop_phase(smi: str):
     return {"wall_s": wall, "times": times, "checkpoints": names,
             "substep_launches": launches, "peak_memory_bytes": peak}
 
+# ------------------------------------------- 11-13. every env of the package
+
+OTHER_MAZES = ("antmaze-v2", "antmaze-v2-hard", "antmaze-v3", "antmaze-v4",
+               "antmaze-v5")
+N_MAZE_STEPS = {"antmaze-v3": 64}   # collect steps at 4096 envs; else 16
+MAZE_TRAIN_ITERS = 5                 # timed train iterations, after 2
+# ee control targets on the card against the CPU, from copies of one state:
+# the 3x3 solves take float32 J J^T from cuBLAS in another order than the
+# CPU's, which moves a target by a few ulps (the CPU against JAX:
+# 1.2e-6, tests/test_torch_envs_all.py)
+EE_CTRL_TOL = 1e-5
+
+
+def maze_wall_states(init_qpos: np.ndarray, maze_map, B: int, seed: int,
+                     device="cuda"):
+    """Random ant states (`ant_states`) with each torso 0.45 m outside a
+    face of one of the maze's wall cells that borders a free cell (the
+    faces drawn uniformly), anywhere along the face's middle 3 m, moving
+    into it at 2 m/s."""
+    qpos, qvel, ctrl = (a.cpu().numpy() for a in ant_states(
+        init_qpos, B, seed, False, device="cpu"))
+    ri, rj = maze.find_reset(maze_map)
+    rows, cols = len(maze_map), len(maze_map[0])
+    faces = []                     # (face centre x, y, outward normal)
+    for i in range(rows):
+        for j in range(cols):
+            if maze_map[i][j] != 1:
+                continue
+            for di, dj in ((1, 0), (-1, 0), (0, 1), (0, -1)):
+                ni, nj = i + di, j + dj
+                if 0 <= ni < rows and 0 <= nj < cols and \
+                        maze_map[ni][nj] != 1:
+                    cx, cy = (j - rj) * 4.0, (i - ri) * 4.0
+                    faces.append((cx + 2.0 * dj, cy + 2.0 * di, dj, di))
+    rng = np.random.RandomState(seed)
+    pick = np.asarray(faces)[rng.randint(0, len(faces), B)]
+    along = rng.uniform(-1.5, 1.5, B)
+    nx, ny = pick[:, 2], pick[:, 3]
+    qpos[:, 0] = pick[:, 0] + 0.45 * nx + along * np.abs(ny)
+    qpos[:, 1] = pick[:, 1] + 0.45 * ny + along * np.abs(nx)
+    qvel[:, 0] = np.where(nx != 0, -2.0 * nx, qvel[:, 0])
+    qvel[:, 1] = np.where(ny != 0, -2.0 * ny, qvel[:, 1])
+    return tuple(torch.tensor(a, device=device) for a in (qpos, qvel, ctrl))
+
+
+def maze_goal_probe(env, name: str, phase: str):
+    """Env k at goal k (0.2, -0.1) away, for every goal of the maze: each
+    must pay its reward exactly with its id, end and reset; the others
+    go on."""
+    goals = maze.GOALS[name]
+    state, _ = env.reset()
+    qpos = state.qpos.clone()
+    for k, (xy, _) in enumerate(goals):
+        qpos[k, :2] = torch.tensor(xy, device="cuda") + torch.tensor(
+            [0.2, -0.1], device="cuda")
+    state, _, reward, done, info = env.step(
+        state._replace(qpos=qpos),
+        torch.zeros((env.num_envs, env.action_dim), device="cuda"))
+    G = len(goals)
+    got = (reward[:G].tolist(), info["success"][:G].tolist(),
+           bool(done[:G].all()), state.t[:G].tolist())
+    want = ([r for _, r in goals], list(range(1, G + 1)), True, [0] * G)
+    if got != want or bool(done[G:].any()):
+        raise RuntimeError(f"{name} goal probe: (rewards, ids, done, t) "
+                           f"{got}, want {want}")
+    log(phase, f"{name}: every goal pays (rewards {got[0]}, ids {got[1]}),"
+        " ends and resets")
+
+
+def short_train(name: str, kernel_of, smi: str, phase: str, **over):
+    """The stock agent on env `name` at TRAIN_ENVS envs: init and
+    warm-up, 2 + MAZE_TRAIN_ITERS train iterations, the kernel's launches
+    in the timed ones exactly horizon x iterations, finite logs; one eval
+    rollout (cfg.eval_num_envs envs, a whole episode) timed. Returns the
+    record."""
+    from ddiffpg_tpu_torch.agents.evaluation import eval_rollout
+
+    cfg = stock_config(name, **over)
+    torch.cuda.reset_peak_memory_stats()
+    env = make(name, num_envs=TRAIN_ENVS, device="cuda", seed=0,
+               **({"control_type": cfg.env.control_type}
+                  if name.startswith("Panda") else
+                  {"random_init": cfg.env.random_init}))
+    agent = make_agent("DDiffPG", env, cfg)
+    t0 = time.time()
+    ts = agent.warmup(agent.init())
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    spi = TRAIN_ENVS * cfg.algo.horizon_len
+    steps = int(ts.global_step)
+    for _ in range(2):
+        ts, logs = agent.train_iter(ts, steps)
+        steps += spi
+    kern = kernel_of(env)
+    torch.cuda.synchronize()
+    kern.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(MAZE_TRAIN_ITERS):
+        ts, logs = agent.train_iter(ts, steps)
+        steps += spi
+    torch.cuda.synchronize()
+    s_iter = (time.perf_counter() - t0) / MAZE_TRAIN_ITERS
+    launches = kern.launches
+    if launches != cfg.algo.horizon_len * MAZE_TRAIN_ITERS:
+        raise RuntimeError(f"{name}: the kernel launched {launches} times in "
+                           f"{MAZE_TRAIN_ITERS} train iterations")
+    check_logs(logs, f"{name} train")
+    eval_env = make(name, num_envs=cfg.eval_num_envs, device="cuda", seed=1,
+                    **({"control_type": cfg.env.control_type}
+                       if name.startswith("Panda") else
+                       {"random_init": cfg.env.random_init}))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics, _ = eval_rollout(eval_env, lambda obs: agent.eval_actor(
+        ts, obs, generator=gen))
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    L = env.max_episode_length
+    log(phase, f"{name} stock DDiffPG at {TRAIN_ENVS} envs: warm-up "
+        f"{warm_s:.2f} s, {MAZE_TRAIN_ITERS} train iterations "
+        f"{s_iter:.4f} s each ({spi / s_iter:.0f} env steps/s), kernel "
+        f"launches {launches}; replay {ts.replay.capacity} slots of {L} "
+        f"steps; eval ({cfg.eval_num_envs} envs x {L} steps) {eval_s:.2f} s"
+        f", return {metrics['eval/return']:.3g}; peak memory "
+        f"{peak / 2**20:.0f} MiB [{smi}]")
+    return {"env": name, "num_envs": TRAIN_ENVS, "episode_len": L,
+            "warmup_s": warm_s, "s_per_train_iter": s_iter,
+            "kernel_launches": launches, "eval_s": eval_s,
+            "eval_envs": cfg.eval_num_envs, "peak_memory_bytes": peak,
+            "card": smi}
+
+
+def two_family_recluster(families, fail_len: int, D: int, noise: float,
+                         smi: str, phase: str, what: str, **cm_kw):
+    """A recluster on the card of synthetic successes of two families
+    (families[g] = (corners, lengths), goal ids 1 and 2, `path_track`
+    with point noise `noise` and a wander of 0.4 `noise` a step) and as
+    many failures (random walks at the start): two modes, each family in
+    one, and the DTW kernel launched on stacks of at most 512 points.
+    Returns (the record, the kernel's launches)."""
+    from ddiffpg_tpu_torch.modes.cluster import ClusterManager
+
+    rng = np.random.RandomState(7)
+    tracks, lengths, goal = [], [], []
+    for g, (corners, lens) in enumerate(families):
+        for n in lens:
+            tracks.append(path_track(rng, int(n), corners, 0.4 * noise,
+                                     noise))
+            lengths.append(int(n))
+            goal.append(g + 1)
+    n_fail = len(tracks)
+    for _ in range(n_fail):
+        tr = np.cumsum(rng.randn(fail_len + 1, D) * 0.4 * noise, axis=0)
+        tracks.append(tr + np.asarray(families[0][0][0]))
+        lengths.append(fail_len)
+        goal.append(0)
+    Lmax = max(lengths)
+    S = len(tracks)
+    stack = np.zeros((S, Lmax + 1, D), np.float32)
+    for k, tr in enumerate(tracks):
+        stack[k, : len(tr)] = tr
+    lengths, goal = np.asarray(lengths), np.asarray(goal, np.int32)
+    kern = dtw_cuda.get_kernel("cuda")
+    kern.launches = 0
+    cm = ClusterManager(capacity=2000, device="cuda", traj_dim=D, **cm_kw)
+    t0 = time.perf_counter()
+    res = cm.recluster(np.arange(S), lengths, goal, stack)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    L_dtw = int(cm._tracks_dev[0].shape[1])
+    m = res.group_mask
+    fam = [np.flatnonzero(goal == g) for g in (1, 2)]
+    g_of = [[g for g in range(1, res.num_groups) if bool(m[g][f].all())]
+            for f in fam]
+    ok = (res.num_groups == 3 and all(len(x) == 1 for x in g_of)
+          and g_of[0] != g_of[1] and kern.launches > 0 and L_dtw <= 512)
+    log(phase, f"{what}: {len(fam[0]) + len(fam[1])} successes of lengths "
+        f"{min(lengths[goal > 0])}-{Lmax} (Dx {D}) and {n_fail} failures: "
+        f"{res.num_groups - 1} modes, each family in one: "
+        f"{'ok' if ok else 'FAIL'}; DTW on stacks of {L_dtw} points, "
+        f"{cm.dtw_stats['pairs']} pairs in {kern.launches} kernel launches; "
+        f"{secs:.3f} s [{smi}]")
+    if not ok:
+        raise RuntimeError(f"{what}: the recluster did not find the two "
+                           "families")
+    return {"successes": int((goal > 0).sum()), "max_len": Lmax,
+            "dtw_len": L_dtw, "modes": res.num_groups - 1,
+            "pairs": cm.dtw_stats["pairs"], "launches": kern.launches,
+            "seconds": secs}, kern.launches
+
+
+def mazes_phase(smi: str, maze_kernels: dict, cfg: Config):
+    """11: each other maze's substep builds against the plain version
+    (random and wall batches at 4096 and 20 envs), timed with their
+    bounds; collects at 4096 envs; every goal probed; stock DDiffPG
+    trained on antmaze-v3; a recluster of 700-step successes to v2's two
+    goals. Returns (record, {maze: launches}, kernel entries, the DTW
+    kernel's launches, antmaze-v3's collect split for `device_split`)."""
+    rec, launches, entries = {}, {}, []
+    for name in OTHER_MAZES:
+        k10, k1 = maze_kernels[name]
+        env0 = AntMazeEnv(name, device="cpu")
+        init_qpos = np.asarray(env0.model.init_qpos)
+        nobox = dataclasses.replace(k1.consts, nsb=0,
+                                    box_min=k1.consts.box_min[:0],
+                                    box_max=k1.consts.box_max[:0])
+        err = 0.0
+        for wall in (False, True):
+            args = maze_wall_states(init_qpos, env0.maze_map, NUM_ENVS, 11) \
+                if wall else ant_states(init_qpos, NUM_ENVS, 0, False)
+            for nsub, kern in ((1, k1), (10, k10)):
+                err = max(err, check_kernel(
+                    kern, f"{name} {'wall' if wall else 'random'}", args,
+                    TOL[nsub], "11 mazes"))
+            if wall:
+                free = substep_reference(nobox, *args)[1]
+                dv = float((k1(*args)[1] - free).abs().max())
+                log("11 mazes", f"{name} wall batch: max|dqvel| from the "
+                    f"walls {dv:.3f}")
+                if dv < 1e-2:
+                    raise RuntimeError(f"{name}: wall batch made no contact")
+        qp, qv, ct = ant_states(init_qpos, NUM_ENVS, 0, False)
+        ms = cuda_ms(lambda: k10(qp, qv, ct), 50)
+        plain_ms = cuda_ms(lambda: substep_reference(k10.consts, qp, qv, ct),
+                           1)
+        bound = substep_bound(k10.consts, qp, qv, ct)
+        log("11 mazes", f"{name} ({k10.consts.nsb} walls) one control step "
+            f"at B={NUM_ENVS}: kernel {ms:.4f} ms, plain PyTorch "
+            f"{plain_ms:.2f} ms, bound {bound[0]:.5f} ms ({bound[1]}, "
+            f"{bound[2]} flops per env per substep); {k10.shared_bytes} "
+            f"shared bytes per block [{smi}]")
+        rec[name] = {"walls": k10.consts.nsb, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound[0], "max_abs_err": err}
+        entries.append((name, err, ms, plain_ms, bound))
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for name in OTHER_MAZES:
+        n_steps = N_MAZE_STEPS.get(name, 16)
+        env = make(name, num_envs=NUM_ENVS, random_init=True, device="cuda",
+                   seed=0)
+        actor = Actor(env, cfg, gen)
+        state, obs, roll, secs, n, n_reset = timed_collect(
+            actor, env, env.env.kernel, n_steps, name)
+        launches[name] = n
+        log("11 mazes", f"{name} collect {n_steps} steps x {NUM_ENVS} envs "
+            f"({env.max_episode_length}-step episodes): {secs:.3f} s, "
+            f"{NUM_ENVS * n_steps / secs:.0f} env steps/s, kernel launches "
+            f"{n}, envs auto-reset {n_reset} [{smi}]")
+        rec[name]["collect_env_steps_per_s"] = NUM_ENVS * n_steps / secs
+        maze_goal_probe(env, name, "11 mazes")
+        if name == "antmaze-v3":
+            v3_split = host_split(actor, env, state, obs, {}, "11 mazes",
+                                  smi)
+
+    train = short_train("antmaze-v3", lambda e: e.env.kernel, smi,
+                        "11 mazes")
+    launches["antmaze-v3"] += train["kernel_launches"]
+    rec["train_v3"] = train
+    # v2's goals: (-8, 8) up the west corridor, (8, 0) east; 600-700 steps
+    rng = np.random.RandomState(3)
+    fam = [([[0, 0], [-8, 0], [-8, 8]], rng.randint(600, 701, 100)),
+           ([[0, 0], [8, 0]], rng.randint(600, 701, 100))]
+    rec["recluster_v2"], dtw_n = two_family_recluster(
+        fam, 60, 2, 0.05, smi, "11 mazes", "antmaze-v2 recluster of 700-step "
+        "successes", threshold=70.0)
+    return rec, launches, entries, dtw_n, v3_split
+
+
+def panda_ee_phase(smi: str, cfg: Config):
+    """12: the ee control targets on the card against the CPU at 4096 envs;
+    collects of PandaDrawerMulti-v3 and PandaReach-v3 (ee) at 4096 envs
+    with the host split of a control step; stock DDiffPG on
+    PandaReach-v3 with `env.control_type=ee`; a recluster of 3-D ee tracks
+    with use_downsampling. Returns (record, launches, split)."""
+    rec = {}
+    env = make("PandaDrawerMulti-v3", num_envs=NUM_ENVS, device="cuda",
+               seed=0)
+    drawer: PandaTaskEnv = env.env
+    cpu = PandaTaskEnv("DrawerMulti", control_type="ee", device="cpu")
+    qpos, _, _ = panda_states(drawer.model, drawer.meta, NUM_ENVS, 4)
+    act = torch.rand((NUM_ENVS, 4), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(4))
+    act = act * 2.4 - 1.2
+    got = drawer._ctrl_from_action(qpos, act)
+    want = cpu._ctrl_from_action(qpos.cpu(), act.cpu())
+    err = float((got.cpu() - want).abs().max())
+    ok = err <= EE_CTRL_TOL and bool(torch.isfinite(got).all())
+    log("12 panda ee", f"ee control targets at B={NUM_ENVS}, card vs CPU "
+        f"from copies of one state: max|diff| {err:.3e} (bound "
+        f"{EE_CTRL_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("ee control targets: card and CPU disagree")
+    rec["ctrl_card_vs_cpu"] = err
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    actor = Actor(env, cfg, gen)
+    state, obs, roll, secs, drawer_n, n_reset = timed_collect(
+        actor, env, drawer.kernel, N_STEPS, "PandaDrawerMulti-v3")
+    log("12 panda ee", f"DrawerMulti (ee, 4-D actions) collect {N_STEPS} "
+        f"steps x {NUM_ENVS} envs: {secs:.3f} s, "
+        f"{NUM_ENVS * N_STEPS / secs:.0f} env steps/s, kernel launches "
+        f"{drawer_n}, envs auto-reset {n_reset} [{smi}]")
+    rec["drawer_collect_env_steps_per_s"] = NUM_ENVS * N_STEPS / secs
+    zeros = torch.zeros((NUM_ENVS, 4), device="cuda")
+    ctrl = drawer._ctrl_from_action(state.qpos, zeros)
+    split = host_split(actor, env, state, obs, {
+        "ctrl (IK)": lambda s=state: drawer._ctrl_from_action(s.qpos, zeros),
+        "kernel": lambda s=state, c=ctrl: drawer.kernel(s.qpos, s.qvel, c),
+        "ee state": lambda s=state: drawer._ee_state(s.qpos, s.qvel)},
+        "12 panda ee", smi)
+    rec["drawer_host_ms"] = split[1]
+
+    reach = make("PandaReach-v3", num_envs=NUM_ENVS, device="cuda", seed=0)
+    reach_actor = Actor(reach, cfg, gen)
+    _, _, _, secs, reach_n, n_reset = timed_collect(
+        reach_actor, reach, reach.env.kernel, N_REACH_STEPS, "PandaReach-v3")
+    log("12 panda ee", f"Reach (ee, 3-D actions) collect {N_REACH_STEPS} "
+        f"steps x {NUM_ENVS} envs: {secs:.3f} s, "
+        f"{NUM_ENVS * N_REACH_STEPS / secs:.0f} env steps/s, kernel "
+        f"launches {reach_n}, envs auto-reset {n_reset} [{smi}]")
+    rec["reach_collect_env_steps_per_s"] = NUM_ENVS * N_REACH_STEPS / secs
+
+    # warm-up cut from 500 to 100 random steps (one whole 100-step episode
+    # per env): an ee control step spends ~55 ms of host in the IK
+    train = short_train("PandaReach-v3", lambda e: e.env.kernel, smi,
+                        "12 panda ee", **{"env.control_type": "ee",
+                                          "algo.warm_up": 100})
+    rec["train_reach_ee"] = train
+    # 3-D ee tracks to two drawers (Panda's preset: use_downsampling)
+    rng = np.random.RandomState(5)
+    fam = [([[-0.1, 0.0, 0.6], [-0.25, -0.185, 0.48]],
+            rng.randint(20, 100, 60)),
+           ([[-0.1, 0.0, 0.6], [-0.25, 0.185, 0.68]],
+            rng.randint(20, 100, 60))]
+    rec["recluster_ee"], dtw_n = two_family_recluster(
+        fam, 100, 3, 0.002, smi, "12 panda ee", "PandaDrawerMulti ee-track "
+        "recluster (use_downsampling)", use_downsampling=True)
+    launches = {"drawer": drawer_n, "reach": reach_n
+                + train["kernel_launches"]}
+    return rec, launches, split, dtw_n
+
+
+def entry_point_run(name: str, smi: str, phase: str, *extra):
+    """`train.main` on `name` with the stock config (and `extra`
+    overrides) at TRAIN_ENVS envs, cut to warm-up + 4 iterations with an
+    eval every two: its metrics.jsonl must hold an eval/success_goal{g}
+    key for each of the env's goals. Returns the record."""
+    import tempfile
+
+    from ddiffpg_tpu_torch import train
+
+    cfg = stock_config(name)
+    goals = len(maze.GOALS[name.replace("pointmaze", "antmaze")])
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        train.main(["algo=ddiffpg", f"env.name={name}",
+                    f"num_envs={TRAIN_ENVS}", "seed=0", "eval_freq=2",
+                    f"max_step={(cfg.algo.warm_up + 4) * TRAIN_ENVS}",
+                    f"logdir={tmp}", "run_name=smoke", *extra])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        recs = [json.loads(x) for x in (Path(tmp) / "smoke" /
+                                        "metrics.jsonl").read_text()
+                .splitlines()]
+    evals = [r for r in recs if "eval/return" in r]
+    keys = sorted({k for r in evals for k in r
+                   if k.startswith("eval/success_goal")})
+    want = [f"eval/success_goal{g + 1}" for g in range(goals)]
+    eval_s = [r["time/eval_s"] for r in evals]
+    log(phase, f"train.main on {name}: {wall:.1f} s, {len(evals)} evals "
+        f"({', '.join(f'{s:.2f}' for s in eval_s)} s), per-goal keys "
+        f"{keys} [{smi}]")
+    if len(evals) != 2 or keys != want:
+        raise RuntimeError(f"{name}: evals {len(evals)}, per-goal keys "
+                           f"{keys}, want {want}")
+    return {"env": name, "wall_s": wall, "eval_s": eval_s,
+            "goal_keys": keys}
+
+
+def pointmaze_phase(smi: str, cfg: Config):
+    """13: a collect of pointmaze-v1 at 4096 envs (plain PyTorch, no
+    kernel), then the entry point on antmaze-v2 and on pointmaze-v2.
+    Returns (record, launches of the antmaze-v2 run's train and eval
+    kernels, split)."""
+    env = make("pointmaze-v1", num_envs=NUM_ENVS, device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    actor = Actor(env, cfg, gen)
+    state, obs = env.reset()
+    t_start = torch.randint(0, env.max_episode_length, (NUM_ENVS,),
+                            generator=gen, device="cuda", dtype=torch.int32)
+    state, obs, _ = actor.collect(env, state._replace(t=t_start), obs, 1)
+    t_before = state.t.clone()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    state, obs, roll = actor.collect(env, state, obs, N_STEPS)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    n_reset = check_collect(env, roll, state, t_before, N_STEPS,
+                            "pointmaze-v1")
+    log("13 pointmaze", f"pointmaze-v1 collect {N_STEPS} steps x {NUM_ENVS} "
+        f"envs: {secs:.3f} s, {NUM_ENVS * N_STEPS / secs:.0f} env steps/s, "
+        f"envs auto-reset {n_reset}, goals reached "
+        f"{int((roll.success > 0).sum())} [{smi}]")
+    split = host_split(actor, env, state, obs, {}, "13 pointmaze", smi)
+    rec = {"pointmaze_collect_env_steps_per_s": NUM_ENVS * N_STEPS / secs}
+
+    from ddiffpg_tpu_torch import train
+    made, make_envs = [], train.make_envs
+
+    def recording_make_envs(*a, **k):
+        made.extend(make_envs(*a, **k))
+        return made[-2:]
+
+    train.make_envs = recording_make_envs
+    try:
+        rec["main_antmaze_v2"] = entry_point_run("antmaze-v2", smi,
+                                                 "13 pointmaze")
+        # no preset names pointmaze-v2: its 7-row maze needs a density
+        # grid resolution that 7 divides (the presets' 357), in both
+        # packages (the stock 255 raises)
+        rec["main_pointmaze_v2"] = entry_point_run(
+            "pointmaze-v2", smi, "13 pointmaze", "env.resolution=357")
+    finally:
+        train.make_envs = make_envs
+    v2_launches = made[0].env.kernel.launches + made[1].env.kernel.launches
+    return rec, v2_launches, split
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -1145,18 +1594,25 @@ def main() -> int:
     scenes = {task: build_panda_scene(task) for task in PANDA_TASKS}
     panda_c = {(task, n): SubstepConstants.from_model(m, n_substeps=n)
                for task, (m, _) in scenes.items() for n in (20, 1)}
-    builds = list(ant_c.values()) + list(panda_c.values())
+    maze_c = {(name, n): SubstepConstants.from_model(
+        AntMazeEnv(name, device="cpu").model, n_substeps=n)
+        for name in OTHER_MAZES for n in (10, 1)}
+    builds = list(ant_c.values()) + list(panda_c.values()) + \
+        list(maze_c.values())
     with ThreadPoolExecutor(max_workers=2) as pool:
         # the DTW kernel (nvcc) and the linkage library (g++) beside them
         others = [pool.submit(dtw_cuda.build), pool.submit(_native.build)]
         build_all(builds)
         for f in others:
             f.result()
-    log("2 build", f"{len(builds)} substep kernels (ant at 10 and 1 "
-        "substeps, four Panda scenes at 20 and 1), the DTW kernel and the "
-        f"linkage library built in {time.time() - t0:.1f} s")
+    log("2 build", f"{len(builds)} substep kernels (antmaze-v1 at 10 and 1 "
+        "substeps, four Panda scenes at 20 and 1, the five other mazes at "
+        "10 and 1), the DTW kernel and the linkage library built in "
+        f"{time.time() - t0:.1f} s")
     labels = [f"ant n_substeps {n}" for n in ant_c] + [
-        f"{task} n_substeps {n}" for task, n in panda_c]
+        f"{task} n_substeps {n}" for task, n in panda_c] + [
+        f"{name} ({c.nsb} walls) n_substeps {n}"
+        for (name, n), c in maze_c.items()]
     for label, c in zip(labels, builds):
         for line in build(c).with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
@@ -1164,8 +1620,11 @@ def main() -> int:
     t0 = time.time()
     k10, k1 = SubstepKernel(ant_c[10]), SubstepKernel(ant_c[1])
     pk = {key: SubstepKernel(c) for key, c in panda_c.items()}
+    mk = {key: SubstepKernel(c) for key, c in maze_c.items()}
+    maze_kernels = {name: (mk[(name, 10)], mk[(name, 1)])
+                    for name in OTHER_MAZES}
     log("2 build", f"loaded in {time.time() - t0:.1f} s")
-    for label, k in zip(labels, [k10, k1, *pk.values()]):
+    for label, k in zip(labels, [k10, k1, *pk.values(), *mk.values()]):
         log("2 build", f"{label}: {k.lanes} lanes per env, {k.groups} envs "
             f"per block of {k.lanes * k.groups} threads, {k.shared_bytes} "
             "shared bytes per block")
@@ -1339,22 +1798,46 @@ def main() -> int:
     loop = loop_phase(smi)
     loop_launches = sum(loop["substep_launches"].values())
 
-    # ---------------------------------------------------------- 11. result
+    # ----------------------------------------- 11. the other antmazes
+    mazes, maze_launches, maze_entries, dtw_maze, v3_split = mazes_phase(
+        smi, maze_kernels, cfg)
+
+    # ------------------------------------------ 12. Panda ee control
+    ee, ee_launches, ee_split, dtw_ee = panda_ee_phase(smi, cfg)
+
+    # --------------------------------- 13. pointmaze and the entry point
+    points, v2_main_launches, point_split = pointmaze_phase(smi, cfg)
+    maze_launches["antmaze-v2"] += v2_main_launches
+
+    # device time of the new collect paths, after every timed phase
+    device_split(*v3_split, "antmaze-v3", smi)
+    device_split(*ee_split, "PandaDrawerMulti-v3 (ee)", smi)
+    device_split(*point_split, "pointmaze-v1", smi)
+
+    # ---------------------------------------------------------- 14. result
     print(json.dumps({"train": train}))
     print(json.dumps({"loop": {"dtw": dtw_rec, "recluster": recluster,
                                "run": loop, "card": smi}}))
+    print(json.dumps({"envs": {"mazes": mazes, "panda_ee": ee,
+                               "pointmaze": points, "card": smi}}))
     print(json.dumps({"kernels": [
         kernel_entry("substep_ant",
                      ant_launches + train_launches + loop_launches, ant_err,
                      ant_ms, ant_plain_ms, ant_bound),
-        kernel_entry("substep_panda_drawermulti", drawer_launches,
+        kernel_entry("substep_panda_drawermulti",
+                     drawer_launches + ee_launches["drawer"],
                      panda_err["DrawerMulti"], panda_ms["DrawerMulti"],
                      panda_plain_ms["DrawerMulti"],
                      panda_bound["DrawerMulti"]),
-        kernel_entry("substep_panda_reach", reach_launches,
+        kernel_entry("substep_panda_reach",
+                     reach_launches + ee_launches["reach"],
                      panda_err["Reach"], panda_ms["Reach"],
                      panda_plain_ms["Reach"], panda_bound["Reach"]),
-        kernel_entry("dtw", dtw_launches, dtw_rec["max_abs_err"],
+        *[kernel_entry(f"substep_{name.replace('-', '_')}",
+                       maze_launches[name], err, ms, plain_ms, bound)
+          for name, err, ms, plain_ms, bound in maze_entries],
+        kernel_entry("dtw", dtw_launches + dtw_maze + dtw_ee,
+                     dtw_rec["max_abs_err"],
                      dtw_rec["ms"], dtw_rec["plain_ms"], dtw_rec["bound"],
                      source="ddiffpg_tpu_torch/csrc/dtw.cu",
                      replaces="ddiffpg_tpu/ops/dtw.py:25")]}))

@@ -26,7 +26,8 @@ def eval_rollout(env, actor_fn, reset_xy: torch.Tensor | None = None):
     state, obs = env.reset(xy=reset_xy)
     E, dev = env.num_envs, obs.device
     inner = getattr(env, "env", env)
-    n_goals = getattr(inner, "num_goals", 1)
+    n_goals = getattr(inner, "num_goals",
+                      len(getattr(inner, "goal_xy", [0])))
     goal_ids = torch.arange(1, n_goals + 1, device=dev)
     zero = lambda dtype: torch.zeros((), dtype=dtype, device=dev)  # noqa: E731
     cur_ret = torch.zeros(E, device=dev)

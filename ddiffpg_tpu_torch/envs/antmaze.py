@@ -1,11 +1,15 @@
-"""AntMaze, batched on torch tensors (antmaze-v1 in this port).
+"""AntMaze, batched on torch tensors: every maze of `physics/maze.py`
+(antmaze-v1, v2, v2-hard, v3, v4, v5).
 
 Counterpart of `ddiffpg_tpu/envs/antmaze.py` (`_init_state`, `reset`,
 `step_batched`). Semantics as there:
   * obs = qpos[:15] ++ qvel[:14] (29-D), with non-finite entries zeroed
-  * sparse reward: the goal's reward within 0.5 m of it (dense: -distance)
-  * an episode ends on reaching a goal, at `max_episode_steps` (500,
-    reported as `time_outs`), or on a broken state (non-finite, escaped,
+  * sparse reward: the reward of the first goal within 0.5 m (10; v2's
+    first goal 20), info["success"] its 1-based id (dense: -distance to
+    the nearest goal)
+  * an episode ends on reaching a goal, at `max_episode_steps`
+    (`maze.EPISODE_LEN`: 700 for v3 and v4, else 500; reported as
+    `time_outs`), or on a broken state (non-finite, escaped,
     below the floor or over the wall top); finished envs auto-reset in the
     same call, and the call still returns the true terminal obs
   * random_init: torso xy ~ U(-2, 2) at every (re)set
@@ -16,7 +20,10 @@ substep kernel (`physics/substep_cuda.py`), for any batch size; on the CPU
 it is the plain PyTorch version (`physics/substep.py`). The env is built on
 the card unless the caller passes `device="cpu"`, and the choice follows
 the device of the state tensors. Both use the maze's wall AABBs, like the
-Pallas kernel every archived TPU run trained on.
+Pallas kernel every archived TPU run trained on. The wall count is a
+compile-time size of the kernel and the walls' coordinates go into its
+model block, so each maze has its own build (v4 and v5, both 29 walls,
+too).
 """
 
 from __future__ import annotations

@@ -2,14 +2,17 @@
 DrawerMulti, Cabinet.
 
 Counterpart of `ddiffpg_tpu/envs/panda.py` (`PandaTaskEnv`'s batched path:
-`_ee_state`, `_obs_from`, `_init_state`, `_success_reward`, the joints
-branch of `_ctrl_from_action`, `step_batched`, and `make_panda_env`).
-Semantics as there:
+`_ee_state`, `_obs_from`, `_init_state`, `_success_reward`,
+`_ctrl_from_action`, `step_batched`, and `make_panda_env`). Semantics as
+there:
   * obs = [ee pos (3), ee vel (3)] (+ fingers' width when the gripper is
     free) ++ task obs (drawer joints / cabinet joint)
-  * actions in [-1, 1]: delta q * 0.05 as the arm servos' position targets;
-    the last dim drives the finger width (+-0.2 max) unless the gripper is
-    blocked (Reach)
+  * actions in [-1, 1]: `control_type="joints"`: delta q * 0.05 as the arm
+    servos' position targets; `"ee"`: an end-effector displacement * 0.05
+    (its z kept >= 0) turned into arm targets by three steps of DLS IK
+    (`physics/panda.py:Arm.dls_ik`); either way clamped to the joint
+    limits. The last dim drives the finger width (+-0.2 max) unless the
+    gripper is blocked (Reach)
   * sparse reward 10 at success, else 0 (dense: -distance); an episode ends
     on success or at `max_episode_steps` (100, reported as `time_outs`);
     finished envs auto-reset in the same call, which still returns the
@@ -20,8 +23,9 @@ Semantics as there:
 Physics: on a CUDA device every control step is one launch of the CUDA
 substep kernel (`physics/substep_cuda.py`), for any batch size; on the CPU
 it is the plain PyTorch version (`physics/substep.py`). The env is built on
-the card unless the caller passes `device="cpu"`. `control_type="ee"`
-(end-effector targets through DLS IK) is not ported yet.
+the card unless the caller passes `device="cpu"`. The kinematics (FK for
+the observation and the IK) read index and constant tensors the env builds
+once (`physics/panda.py:Arm`).
 """
 
 from __future__ import annotations
@@ -30,7 +34,6 @@ import numpy as np
 import torch
 
 from ddiffpg_tpu_torch.envs.base import EnvState
-from ddiffpg_tpu_torch.physics import engine
 from ddiffpg_tpu_torch.physics import panda as P
 from ddiffpg_tpu_torch.physics.substep import (SubstepConstants,
                                                substep_reference)
@@ -41,11 +44,11 @@ class PandaTaskEnv:
                  control_type: str = "joints", random_init_pos: bool = False,
                  max_episode_steps: int = 100,
                  device: str | torch.device = "cuda", seed: int = 0):
-        if control_type != "joints":
-            raise NotImplementedError(
-                f"control_type={control_type!r} (DLS IK) is not ported yet "
-                "(ROADMAP.md, Queue 1)")
+        if control_type not in ("joints", "ee"):
+            raise ValueError(f"control_type={control_type!r}: 'joints' or "
+                             "'ee'")
         self.task = task
+        self.control_type = control_type
         self.reward_type = reward_type
         self.random_init_pos = random_init_pos
         self.max_episode_steps = max_episode_steps
@@ -56,7 +59,8 @@ class PandaTaskEnv:
         n_task_obs = {"Reach": 0, "PegInsertion": 0, "DrawerMulti": 4,
                       "Cabinet": 1}[task]
         self.obs_dim = 6 + (0 if self.block_gripper else 1) + n_task_obs
-        self.action_dim = 7 + (0 if self.block_gripper else 1)
+        self.action_dim = ((3 if control_type == "ee" else 7)
+                           + (0 if self.block_gripper else 1))
 
         def const(a, dtype=torch.float32):
             return torch.as_tensor(np.asarray(a), dtype=dtype,
@@ -67,8 +71,9 @@ class PandaTaskEnv:
                           "PegInsertion": len(self.meta.get("goals", [0])),
                           "DrawerMulti": len(self.meta["task_qposadr"]),
                           "Cabinet": 1}[task]
+        self.arm = P.Arm(self.model, self.meta, self.device)
         self.init_qpos = const(self.model.init_qpos)
-        self.arm_adr = const(self.meta["arm_qposadr"], torch.long)
+        self.arm_adr = self.arm.arm_qposadr
         self.finger_adr = const(self.meta["finger_qposadr"], torch.long)
         self.task_adr = const(self.meta["task_qposadr"], torch.long)
         self.q_lo = const(np.asarray(P.JOINT_LIMIT_LO, np.float32))
@@ -101,12 +106,12 @@ class PandaTaskEnv:
 
     def _ee_state(self, qpos, qvel):
         """End-effector position and velocity [B, 3] each."""
-        m = self.model
-        body_pos, body_quat = engine.fk(m, qpos)
-        p_ee = P.ee_position(self.meta, body_pos, body_quat)
-        S = engine.dof_subspaces(m, body_pos, body_quat)
-        V = engine.body_velocities(m, S, engine.qvel_to_u(m, qvel, body_pos))
-        h = self.meta["hand_idx"]
+        kin = self.arm.kin
+        body_pos, body_quat = kin.fk(qpos)
+        p_ee = self.arm.ee_position(body_pos, body_quat)
+        S = kin.dof_subspaces(body_pos, body_quat)
+        V = kin.body_velocities(S, kin.qvel_to_u(qvel, body_pos))
+        h = self.arm.hand
         v_ee = V[:, h, 3:] + torch.linalg.cross(V[:, h, :3], p_ee)
         return p_ee, v_ee
 
@@ -179,7 +184,15 @@ class PandaTaskEnv:
         """action [B, A] in [-1, 1] -> servo targets [B, nu]: 7 arm joints,
         then the 2 fingers."""
         action = torch.clamp(action, -1.0, 1.0)
-        target_q = qpos[:, self.arm_adr] + action[:, :7] * 0.05
+        if self.control_type == "ee":
+            body_pos, body_quat = self.arm.kin.fk(qpos)
+            p_ee = self.arm.ee_position(body_pos, body_quat)
+            target_p = p_ee + action[:, :3] * 0.05
+            target_p = torch.cat([target_p[:, :2],
+                                  torch.clamp_min(target_p[:, 2:], 0.0)], -1)
+            target_q = self.arm.dls_ik(qpos, target_p)
+        else:
+            target_q = qpos[:, self.arm_adr] + action[:, :7] * 0.05
         target_q = torch.clamp(target_q, self.q_lo, self.q_hi)
         if self.block_gripper:
             finger_t = torch.full((qpos.shape[0], 2), 0.03 / 2,

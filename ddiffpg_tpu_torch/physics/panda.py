@@ -6,10 +6,8 @@ PyBullet's POSITION_CONTROL with joint forces), and the four task scenes.
 Scene layout as there: robot base at (-0.6, 0, 0), the table top is the
 z = 0 plane, task furniture is static AABBs plus 1-dof dynamic boxes
 (drawer slides, cabinet door). The builder gives `Model`s field-identical
-to the JAX package's.
-
-`ee_jacobian` and `dls_ik`, which serve only `control_type="ee"`, are not
-ported yet (ROADMAP.md, Queue 1).
+to the JAX package's. `Arm` holds one scene's kinematics on a device for
+the env's observation and its `ee` control (`ee_jacobian`, `dls_ik`).
 """
 
 from __future__ import annotations
@@ -17,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ddiffpg_tpu_torch.physics import engine
 from ddiffpg_tpu_torch.physics import quat as Q
 from ddiffpg_tpu_torch.physics import types as T
 from ddiffpg_tpu_torch.physics.builder import BodySpec, GeomSpec, JointSpec, build
@@ -226,6 +225,69 @@ def build_panda_scene(task: str, dt=0.002, n_substeps=20):
     return model, meta
 
 
+class Arm:
+    """One Panda scene's kinematics on one device, built once: the
+    model's `engine.Kinematics` and the arm's index and constant tensors,
+    so that a control step uploads nothing."""
+
+    def __init__(self, model, meta, device: str | torch.device = "cpu"):
+        self.kin = engine.Kinematics(model, device)
+        dev = self.kin.device
+        self.hand = int(meta["hand_idx"])
+        self.ee_offset = torch.as_tensor(
+            np.asarray(meta["ee_offset"], np.float32), device=dev)
+        body = np.asarray(meta["arm_body_idx"], np.int64)
+        self.arm_body = torch.as_tensor(body, device=dev)
+        self.arm_axis = torch.as_tensor(
+            np.asarray(model.jnt_axis[body], np.float32), device=dev)
+        self.arm_qposadr = torch.as_tensor(
+            np.asarray(meta["arm_qposadr"], np.int64), device=dev)
+
+    def ee_position(self, body_pos: torch.Tensor, body_quat: torch.Tensor):
+        """World position [B, 3] of the end effector (tcp / peg tip)."""
+        h = self.hand
+        return body_pos[:, h] + Q.rotate(body_quat[:, h], self.ee_offset)
+
+    def ee_jacobian(self, body_pos: torch.Tensor, body_quat: torch.Tensor):
+        """(J [B, 3, 7], p_ee [B, 3]): the end effector's positional
+        Jacobian w.r.t. the 7 arm joints, column k = cross(the joint's
+        world axis, p_ee - the link's origin), as
+        `ddiffpg_tpu/physics/panda.py:ee_jacobian`."""
+        p_ee = self.ee_position(body_pos, body_quat)
+        axis = Q.rotate(body_quat[:, self.arm_body], self.arm_axis)
+        cols = torch.linalg.cross(
+            axis, p_ee[:, None] - body_pos[:, self.arm_body])   # [B, 7, 3]
+        return cols.transpose(1, 2), p_ee
+
+    def dls_ik(self, qpos: torch.Tensor, target: torch.Tensor,
+               iters: int = 3, damping: float = 0.05):
+        """Damped-least-squares IK for the end effector's position
+        `target` [B, 3] from qpos [B, nq]: the 7 arm joint targets [B, 7].
+        `iters` steps of dq = J^T (J J^T + damping^2 I)^-1 (target - p),
+        each clipped to +-0.2 and added to the arm joints, FK on the full
+        qpos at every step, the 3x3 system solved in closed form (three
+        cross products over the determinant) as
+        `ddiffpg_tpu/physics/panda.py:dls_ik` does."""
+        q = qpos.clone()
+        adr = self.arm_qposadr
+        eye = torch.eye(3, device=qpos.device)
+        for _ in range(iters):
+            body_pos, body_quat = self.kin.fk(q)
+            J, p = self.ee_jacobian(body_pos, body_quat)
+            err = target - p
+            A = J @ J.transpose(1, 2) + damping**2 * eye
+            a0, a1, a2 = A[..., 0], A[..., 1], A[..., 2]
+            c0 = torch.linalg.cross(a1, a2)
+            c1 = torch.linalg.cross(a2, a0)
+            c2 = torch.linalg.cross(a0, a1)
+            det = (a0 * c0).sum(-1, keepdim=True)
+            x = torch.stack([(c0 * err).sum(-1), (c1 * err).sum(-1),
+                             (c2 * err).sum(-1)], dim=-1) / det
+            dq = (J * x[..., None]).sum(1)
+            q[:, adr] = q[:, adr] + torch.clamp(dq, -0.2, 0.2)
+        return q[:, adr]
+
+
 def ee_position(meta, body_pos: torch.Tensor, body_quat: torch.Tensor):
     """World position [B, 3] of the end effector (tcp / peg tip) from the
     body frames [B, nb, 3] and [B, nb, 4]."""
@@ -233,3 +295,14 @@ def ee_position(meta, body_pos: torch.Tensor, body_quat: torch.Tensor):
     off = torch.as_tensor(np.asarray(meta["ee_offset"], np.float32),
                           device=body_pos.device)
     return body_pos[:, h] + Q.rotate(body_quat[:, h], off)
+
+
+def ee_jacobian(model, meta, body_pos: torch.Tensor, body_quat: torch.Tensor):
+    """`Arm.ee_jacobian` of a scene met once."""
+    return Arm(model, meta, body_pos.device).ee_jacobian(body_pos, body_quat)
+
+
+def dls_ik(model, meta, qpos: torch.Tensor, target: torch.Tensor,
+           iters: int = 3, damping: float = 0.05):
+    """`Arm.dls_ik` of a scene met once."""
+    return Arm(model, meta, qpos.device).dls_ik(qpos, target, iters, damping)

@@ -1,5 +1,7 @@
-"""The port's antmaze-v1 env against the JAX package's `step_batched`, plus
-the goal probe, truncation, broken-state reset and the registry."""
+"""The port's antmaze envs against the JAX package's `step_batched`
+(antmaze-v1, then every other maze with its goals and episode length),
+plus the goal probe, truncation, broken-state reset and the mazes' wall
+counts in the kernel's build."""
 
 import jax
 import jax.numpy as jnp
@@ -13,6 +15,7 @@ from ddiffpg_tpu.envs.base import EnvState as JaxState  # noqa: E402
 from ddiffpg_tpu_torch.envs import make  # noqa: E402
 from ddiffpg_tpu_torch.envs.antmaze import AntMazeEnv  # noqa: E402
 from ddiffpg_tpu_torch.envs.base import EnvState  # noqa: E402
+from ddiffpg_tpu_torch.physics import maze  # noqa: E402
 from tests.jax_caches import fresh_structure_cache  # noqa: E402,F401
 
 B = 16
@@ -132,8 +135,72 @@ def test_reset_draws_start_cell_xy():
     assert env.max_episode_length == 500
 
 
-@pytest.mark.parametrize("name", ["antmaze-v2", "pointmaze-v1",
-                                  "PandaReach-v3"])
-def test_registry_names_unported_envs(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make(name)
+@pytest.mark.parametrize("name", ["antmaze-v2", "antmaze-v2-hard",
+                                  "antmaze-v3", "antmaze-v4", "antmaze-v5"])
+def test_other_mazes_step_batched_parity(name):
+    """One step of 16 envs of each other maze against the JAX CPU path
+    (engine_cl), JAX's reset draws fed in, at test_step_batched_parity's
+    bounds (positions 2e-5, velocities 2e-4, the rest exact). Every env
+    sits 2 m or more from a wall (the reset cell, and each goal's cell):
+    env k < G starts 0.3 m from goal k (its reward, 20 at v2's first
+    goal, and id k + 1), env G at the last step of its episode (700 for
+    v3 and v4, else 500), the others in the reset cell."""
+    jenv = JaxAntMaze(name, random_init=True)
+    env = AntMazeEnv(name, random_init=True, device="cpu")
+    goals = maze.GOALS[name]
+    G = len(goals)
+    rng = np.random.RandomState(1)
+    qpos = np.tile(np.asarray(env.model.init_qpos)[None], (B, 1))
+    qpos = qpos.astype(np.float32)
+    qpos[:, :2] = rng.uniform(-0.8, 0.8, (B, 2))
+    for k, (xy, _) in enumerate(goals):
+        qpos[k, :2] = np.asarray(xy, np.float32) + (0.2, -0.1)
+    qvel = rng.uniform(-0.5, 0.5, (B, 14)).astype(np.float32)
+    act = rng.uniform(-1, 1, (B, 8)).astype(np.float32)
+    L = maze.EPISODE_LEN.get(name, 500)
+    assert env.max_episode_steps == jenv.max_episode_steps == L
+    t = rng.randint(0, L - 100, B).astype(np.int32)
+    t[G] = L - 1
+    keys = jax.random.split(jax.random.PRNGKey(2), B)
+    jnew, jobs, jrew, jdone, jinfo = jenv.step_batched(
+        JaxState(jnp.asarray(qpos), jnp.asarray(qvel), jnp.asarray(t), keys),
+        jnp.asarray(act))
+    new, obs, rew, done, info = env.step_batched(
+        EnvState(torch.tensor(qpos), torch.tensor(qvel), torch.tensor(t)),
+        torch.tensor(act), reset_xy=torch.tensor(_jax_reset_xy(jenv, keys)))
+
+    want_rew = [r for _, r in goals] + [0.0] * (B - G)
+    assert rew.tolist() == want_rew
+    assert info["success"].tolist() == list(range(1, G + 1)) + [0] * (B - G)
+    assert done[: G + 1].all() and not done[G + 1:].any()
+    assert info["time_outs"].tolist() == [False] * G + [True] + \
+        [False] * (B - G - 1)
+    np.testing.assert_array_equal(rew.numpy(), np.asarray(jrew))
+    np.testing.assert_array_equal(done.numpy(), np.asarray(jdone))
+    np.testing.assert_array_equal(info["success"].numpy(),
+                                  np.asarray(jinfo["success"]))
+    np.testing.assert_array_equal(info["time_outs"].numpy(),
+                                  np.asarray(jinfo["time_outs"]))
+    jobs = np.asarray(jobs)
+    np.testing.assert_allclose(obs[:, :15].numpy(), jobs[:, :15], atol=2e-5)
+    np.testing.assert_allclose(obs[:, 15:].numpy(), jobs[:, 15:], atol=2e-4)
+    np.testing.assert_array_equal(new.t.numpy(), np.asarray(jnew.t))
+    np.testing.assert_allclose(new.qpos.numpy(), np.asarray(jnew.qpos),
+                               atol=2e-5)
+    np.testing.assert_allclose(new.qvel.numpy(), np.asarray(jnew.qvel),
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("name,walls", [
+    ("antmaze-v2", 36), ("antmaze-v2-hard", 36), ("antmaze-v3", 41),
+    ("antmaze-v4", 29), ("antmaze-v5", 29)])
+def test_maze_walls_reach_the_kernel(name, walls):
+    """Each maze's wall AABBs are the kernel's static boxes (NSB), and its
+    build fits one block's shared memory at 16 lanes an env."""
+    from ddiffpg_tpu_torch.physics.substep_cuda import launch_geometry
+
+    env = AntMazeEnv(name, device="cpu")
+    assert env.consts.nsb == walls == len(env.boxes)
+    np.testing.assert_array_equal(env.consts.box_min, env.boxes[:, 0])
+    lanes, groups, shared = launch_geometry(env.consts)
+    assert (lanes, groups) == (16, 16) and shared < 232_448

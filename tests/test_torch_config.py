@@ -30,7 +30,10 @@ def test_algo_preset_identical(algo):
 @pytest.mark.parametrize("env,reward", [
     ("antmaze-v1", "sparse"), ("antmaze-v2", "sparse"),
     ("antmaze-v3", "dense"), ("antmaze-v4", "sparse"),
-    ("PandaReachJoints-v3", "sparse"), ("PandaReachDense-v3", "dense")])
+    ("PandaReachJoints-v3", "sparse"), ("PandaReachDense-v3", "dense"),
+    ("antmaze-v2-hard", "sparse"), ("antmaze-v5", "dense"),
+    ("pointmaze-v1", "sparse"), ("pointmaze-v2-hard", "dense"),
+    ("PandaDrawerMulti-v3", "sparse")])
 @pytest.mark.parametrize("ddiffpg", [True, False])
 def test_preprocess_identical(env, reward, ddiffpg):
     """The per-env overrides and the dense C51 support, as the JAX

@@ -187,7 +187,7 @@ def _card_agent(card, num_envs=64, **over):
     from ddiffpg_tpu_torch.agents import make_agent
     from ddiffpg_tpu_torch.envs import make
 
-    cfg = chip_smoke.train_config().override(
+    cfg = chip_smoke.stock_config("antmaze-v1").override(
         **{"num_envs": num_envs, "algo.warm_up": 25, **over})
     env = make("antmaze-v1", num_envs=num_envs, random_init=True,
                device=card)

@@ -209,3 +209,45 @@ def test_entry_point_device_choice(device, err, tmp_path):
     with pytest.raises(err, match="device"):
         train.main([f"device={device}", f"logdir={tmp_path}"])
     assert not list(tmp_path.iterdir())
+
+
+def test_run_modes_reads_the_final_checkpoint(run, capsys):
+    """`tools/run_modes.py` rebuilds the run's agent from its command
+    line, loads the full checkpoint and reports its live modes (none in
+    this tiny run: its replay holds no success)."""
+    from ddiffpg_tpu_torch.tools import run_modes
+
+    _, run_dir, _ = run
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(maze.EPISODE_LEN, "antmaze-v1", EPISODE)
+        run_modes.main([str(run_dir / "ckpt_final.pt")] + TINY)
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["env"] == "antmaze-v1"
+    assert out["num_groups"] == 1 and out["modes"] == []
+
+
+def test_run_modes_splits_routes_by_y():
+    """Per live group: its successes, their goal ids, the mean position
+    over the steps each trajectory lived, the share with mean y > 0."""
+    from types import SimpleNamespace
+
+    from ddiffpg_tpu_torch.tools.run_modes import mode_routes
+
+    S, L = 5, 4
+    obs = torch.zeros((S, L + 1, 3))
+    obs[0, :3, 1], obs[1, :2, 1] = 4.0, 2.0          # up, lived 3 and 2
+    obs[1, 2:, 1] = -100.0                           # past its length
+    obs[2, :, 1], obs[3, :, 1] = -4.0, -4.0          # down
+    obs[:, :, 0] = -8.0
+    rep = SimpleNamespace(
+        obs=obs, length=torch.tensor([2, 1, 4, 4, 4]),
+        traj_id=torch.tensor([0, 1, 2, 3, -1]),
+        success=torch.tensor([1, 1, 2, 0, 1], dtype=torch.int32),
+        group_mask=torch.tensor([[1, 1, 1, 1, 1], [1, 1, 0, 0, 1],
+                                 [0, 0, 1, 1, 0]], dtype=torch.bool))
+    got = mode_routes(SimpleNamespace(replay=rep), 3, 2)
+    assert got == [
+        {"group": 1, "successes": 2, "goal_ids": [1],
+         "mean_position": [-8.0, 3.0], "share_y_positive": 1.0},
+        {"group": 2, "successes": 1, "goal_ids": [2],
+         "mean_position": [-8.0, -4.0], "share_y_positive": 0.0}]

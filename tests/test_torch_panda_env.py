@@ -1,5 +1,6 @@
-"""The port's Panda env against the JAX package's `step_batched`, plus the
-goal probe, truncation and the registry's Panda names."""
+"""The port's Panda env (joint control) against the JAX package's
+`step_batched`, plus the goal probe, truncation and the registry's Panda
+names; `ee` control is held to JAX in tests/test_torch_envs_all.py."""
 
 import jax
 import jax.numpy as jnp
@@ -58,12 +59,12 @@ def test_step_batched_parity(task, reward_type, random_init):
     state = EnvState(torch.tensor(qpos), torch.zeros(B, m.nv),
                      torch.tensor(t))
     dones = []
+    jstep = jax.jit(jenv.step_batched)      # one compile for both steps
     for step in range(2):
         act = rng.uniform(-1, 1, (B, env.action_dim)).astype(np.float32)
         noise = (torch.tensor(_jax_reset_noise(jstate.key)) if random_init
                  else None)
-        jstate, jobs, jrew, jdone, jinfo = jenv.step_batched(
-            jstate, jnp.asarray(act))
+        jstate, jobs, jrew, jdone, jinfo = jstep(jstate, jnp.asarray(act))
         state, obs, rew, done, info = env.step_batched(
             state, torch.tensor(act), reset_xy=noise)
         np.testing.assert_array_equal(done.numpy(), np.asarray(jdone))
@@ -164,8 +165,3 @@ def test_registry_parses_panda_names(name, obs_dim, action_dim, reward,
     assert env.max_episode_length == 100
     state, obs = env.reset()
     assert obs.shape == (2, obs_dim) and bool(torch.isfinite(obs).all())
-
-
-def test_ee_control_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make("PandaDrawerMulti-v3")
