@@ -32,8 +32,14 @@ on the card against the CPU, ee collects of DrawerMulti and Reach with the
 host split of a step, Reach trained with `env.control_type=ee`, a recluster
 of 3-D ee tracks, phase 12); a pointmaze-v1 collect and the entry point on
 antmaze-v2 and pointmaze-v2, each logging a success rate per goal (phase
-13). It prints one line per phase, JSON lines `{"train": {...}}`,
-`{"loop": {...}}`, `{"envs": {...}}` and `{"kernels": [...]}`, the
+13); the baselines TD3, SAC, DIPO and DiffQ with their stock presets on
+antmaze-v1 at 256 envs (timed train iterations through the kernel, DIPO's
+host split by part, one update pass on the card against the CPU each,
+`train.main` each with two evals, a light and a full checkpoint that must
+reload bit for bit) and TD3 on pointmaze-v1 with dense rewards (phase 14);
+last the profiler windows. It prints one line per phase and its wall
+seconds, JSON lines `{"train": {...}}`, `{"loop": {...}}`,
+`{"envs": {...}}`, `{"baselines": {...}}` and `{"kernels": [...]}`, the
 card's name and power limit as nvidia-smi gives them, and last
 `{"ok": true, "device": {...}}`. It exits non-zero, printing
 no result, when there is no CUDA card, when the port cannot be imported, or
@@ -78,6 +84,7 @@ from ddiffpg_tpu_torch.replay import episodic as ep
 
 NUM_ENVS = 4096          # bench.py's headline cell
 EVAL_ENVS = 20           # the eval batch: checks the kernel's tail masking
+BASELINE_ENVS = 256      # the baselines' stock train env (phase 14)
 N_STEPS = 64             # control steps of the timed collect (bench.py:71)
 N_PLAIN_STEPS = 4        # ant control steps timed with the plain physics
 N_REACH_STEPS = 16       # PandaReachJoints-v3 control steps
@@ -98,6 +105,7 @@ PANDA_TOL = {1: (1e-5, 2e-4), 20: (1e-4, 5e-3)}
 TRAIN_ENVS = 1024        # bench.py:26's train-iteration cell
 TRAIN_ITERS = 10         # timed train iterations, after 2 untimed
 SPLIT_REPS = 5           # calls per part of the host split (median)
+PROFILE_CALLS = 5        # calls in a profiler window of a collect part
 TRAIN_GROUPS = 3         # live groups of the G > 1 check
 DTW_PAIRS = 4096         # pairs of the DTW kernel's check and timing
 # kernel vs plain DTW: both round op by op alike (-fmad=false) and both
@@ -216,13 +224,14 @@ def device_split(fns: dict, host: dict, what: str, smi: str):
     (`device_ms`) and its idle share of the host time. Runs after every
     timed phase, so that the profiler slows none of them."""
     for k, fn in fns.items():
-        dev = device_ms(fn, 10)
+        dev = device_ms(fn, PROFILE_CALLS)
         if dev is None:
             log("8 profile", f"{what} {k}: not measured (the profiler saw "
                 "no device activity)")
             continue
-        log("8 profile", f"{what} {k} on the device (torch.profiler, 10 "
-            f"calls): {dev[2]:.0f} device activities, busy {dev[0]:.3f} ms, "
+        log("8 profile", f"{what} {k} on the device (torch.profiler, "
+            f"{PROFILE_CALLS} calls): {dev[2]:.0f} device activities, busy "
+            f"{dev[0]:.3f} ms, "
             f"of which substep_kernel {dev[1]:.3f} ms; idle "
             f"{1 - dev[0] / host[k]:.1%} of the host time [{smi}]")
 
@@ -354,11 +363,11 @@ def without_dynamic_boxes(c: SubstepConstants) -> SubstepConstants:
 
 
 def check_kernel(kern: SubstepKernel, label: str, args, tol, phase: str):
-    """Kernel vs plain version at NUM_ENVS and EVAL_ENVS rows; the smaller
-    launch must give the larger one's first rows bit for bit. Returns the
-    largest error."""
+    """Kernel vs plain version at NUM_ENVS, BASELINE_ENVS and EVAL_ENVS
+    rows; the smaller launches must give the largest one's first rows bit
+    for bit. Returns the largest error."""
     outs, worst = {}, 0.0
-    for B in (NUM_ENVS, EVAL_ENVS):
+    for B in (NUM_ENVS, BASELINE_ENVS, EVAL_ENVS):
         sub = tuple(a[:B].contiguous() for a in args)
         got = kern(*sub)
         ref = substep_reference(kern.consts, *sub)
@@ -375,9 +384,11 @@ def check_kernel(kern: SubstepKernel, label: str, args, tol, phase: str):
             raise RuntimeError("kernel disagrees with plain version")
         worst = max(worst, eq, ev)
         outs[B] = got
-    for a, b in zip(outs[EVAL_ENVS], outs[NUM_ENVS]):
-        if not torch.equal(a, b[:EVAL_ENVS]):
-            raise RuntimeError(f"{label}: B=20 rows differ from B=4096 rows")
+    for B in (BASELINE_ENVS, EVAL_ENVS):
+        for a, b in zip(outs[B], outs[NUM_ENVS]):
+            if not torch.equal(a, b[:B]):
+                raise RuntimeError(f"{label}: B={B} rows differ from "
+                                   f"B={NUM_ENVS} rows")
     return worst
 
 
@@ -524,6 +535,25 @@ def critic_rows(ts) -> list:
             + [ts.critic_opts.count]]
 
 
+def pass_parts(agent, state: list) -> dict:
+    """Median host ms of each part of an update pass (the agent's `mark`
+    hook, a synchronize at each mark) over SPLIT_REPS passes after one
+    warm-up; `state[0]` is updated."""
+    parts = {}
+    for _ in range(SPLIT_REPS + 1):
+        torch.cuda.synchronize()
+        last = [time.perf_counter()]
+
+        def mark(name):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            parts.setdefault(name, []).append((now - last[0]) * 1e3)
+            last[0] = now
+
+        state[0], _ = agent.update_once(state[0], mark=mark)
+    return {k: statistics.median(v[1:]) for k, v in parts.items()}
+
+
 def card_vs_cpu(agent, ts, cfg, G: int):
     """One update pass on the card and on the CPU from copies of one state
     with the same draws; the largest differences, each against its bound
@@ -647,19 +677,7 @@ def train_phase(smi: str):
     host = host_ms({"train iteration": train_iter, "env step": env_step,
                     f"{cfg.algo.update_times} update passes": update_passes},
                    SPLIT_REPS)
-    parts = {}
-    for _ in range(SPLIT_REPS + 1):
-        torch.cuda.synchronize()
-        last = [time.perf_counter()]
-
-        def mark(name):
-            torch.cuda.synchronize()
-            now = time.perf_counter()
-            parts.setdefault(name, []).append((now - last[0]) * 1e3)
-            last[0] = now
-
-        state[0], _ = agent.update_once(state[0], mark=mark)
-    parts = {k: statistics.median(v[1:]) for k, v in parts.items()}
+    parts = pass_parts(agent, state)
     log("9 train", f"host ms (median of {SPLIT_REPS}, each call between "
         "synchronizes): " + ", ".join(f"{k} {v:.2f}" for k, v in host.items())
         + "; one update pass by part: " + ", ".join(
@@ -1571,6 +1589,308 @@ def pointmaze_phase(smi: str, cfg: Config):
     return rec, v2_launches, split
 
 
+# ------------------------------------------------------ 14. the baselines
+
+BASELINES = ("td3", "sac", "dipo", "diffq")
+BASELINE_ITERS = 5       # timed train iterations, after 2 untimed
+BASELINE_MAIN_ITERS = 4  # train.main's iterations (an eval every two)
+# tests/test_agents.py:157-176's TD3 on pointmaze-v1 with dense rewards
+TD3_DENSE = {"num_envs": 32, "eval_num_envs": 4, "env.name": "pointmaze-v1",
+             "env.resolution": 255, "algo.batch_size": 128,
+             "algo.warm_up": 100, "algo.update_times": 4,
+             "algo.tracker_len": 16, "algo.memory_size": 2000,
+             "algo.num_atoms": 11, "algo.horizon_len": 4,
+             "algo.v_min": -10.0, "algo.v_max": 10.0, "intrinsic.L": 4,
+             "seed": 0}
+TD3_DENSE_ITERS = 120
+
+
+def baseline_config(algo: str) -> Config:
+    """The stock preset of `algo` on antmaze-v1 (256 envs, 1M replay rows,
+    batch 4096, 8 update passes), seed 0."""
+    cfg = Config(algo=algo_preset(algo)).override(**{"env.name":
+                                                     "antmaze-v1"})
+    return preprocess(cfg, if_ddiffpg=False).override(seed=0)
+
+
+def baseline_tensors(ts) -> dict:
+    """The parameters a pass moves, by part (SAC's log_alpha with the
+    actor)."""
+    params = lambda m: [p.detach() for p in m.parameters()]  # noqa: E731
+    actor = params(ts.actor) + params(ts.actor_target)
+    if hasattr(ts, "log_alpha"):
+        actor.append(ts.log_alpha)
+    return {"critic rows (max)": params(ts.critic),
+            "critic targets (max)": params(ts.critic_target),
+            "actor (max)": actor}
+
+
+def baseline_train(algo: str, smi: str):
+    """Stock `algo` on antmaze-v1 on the card: warm-up, 2 + BASELINE_ITERS
+    train iterations (the kernel's launches counted, one an env step), DIPO
+    its host split by part, then one update pass on the card against the
+    CPU from copies of one state with the same draws (bounds
+    CARD_CPU_TOL). Returns (record, launches, agent and state for the
+    profiler window)."""
+    cfg = baseline_config(algo)
+    if cfg.num_envs != BASELINE_ENVS:
+        raise RuntimeError(f"{algo}: {cfg.num_envs} envs, but the kernel "
+                           f"was checked at {BASELINE_ENVS}")
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()     # the earlier agents' states
+    env = make("antmaze-v1", num_envs=cfg.num_envs, random_init=True,
+               device="cuda", seed=0)
+    agent = make_agent(cfg.algo.name, env, cfg)
+    ant: AntMazeEnv = env.env
+    t0 = time.time()
+    ts = agent.warmup(agent.init())
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    for _ in range(2):
+        ts, logs = agent.train_iter(ts)
+    torch.cuda.synchronize()
+    ant.kernel.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(BASELINE_ITERS):
+        ts, logs = agent.train_iter(ts)
+    torch.cuda.synchronize()
+    s_iter = (time.perf_counter() - t0) / BASELINE_ITERS
+    launches = ant.kernel.launches
+    if launches != cfg.algo.horizon_len * BASELINE_ITERS:
+        raise RuntimeError(f"{algo}: the kernel launched {launches} times in "
+                           f"{BASELINE_ITERS} iterations")
+    check_logs(logs, algo)
+    peak = torch.cuda.max_memory_allocated() - held
+    log("14 baselines", f"{algo}: warm-up ({cfg.algo.warm_up} x "
+        f"{cfg.num_envs} envs) {warm_s:.2f} s, replay {int(ts.replay.size)}"
+        f" of {ts.replay.capacity} rows; {BASELINE_ITERS} train iterations "
+        f"(horizon {cfg.algo.horizon_len}, {cfg.algo.update_times} passes "
+        f"of {cfg.algo.batch_size}): {s_iter:.4f} s per iteration, kernel "
+        f"launches {launches}, peak memory (its own) {peak / 2**20:.0f} MiB "
+        f"[{smi}]")
+    log("14 baselines", f"{algo} logs: " + ", ".join(
+        f"{k} {float(v):.4g}" for k, v in logs.items()))
+    rec = {"warmup_s": warm_s, "s_per_train_iter": s_iter,
+           "env_steps_per_s": cfg.num_envs * cfg.algo.horizon_len / s_iter,
+           "kernel_launches": launches, "peak_memory_bytes": peak}
+
+    state = [ts]
+    if algo == "dipo":
+        def env_step():
+            state[0] = agent._env_step(state[0], random=False)
+
+        def update_passes():
+            for _ in range(cfg.algo.update_times):
+                state[0], _ = agent.update_once(state[0])
+
+        def train_iter():
+            state[0], _ = agent.train_iter(state[0])
+
+        host = host_ms({"train iteration": train_iter, "env step": env_step,
+                        f"{cfg.algo.update_times} update passes":
+                        update_passes}, SPLIT_REPS)
+        parts = pass_parts(agent, state)
+        log("14 baselines", f"dipo host ms (median of {SPLIT_REPS}, each "
+            "call between synchronizes): " + ", ".join(
+                f"{k} {v:.2f}" for k, v in host.items())
+            + "; one update pass by part: " + ", ".join(
+                f"{k} {v:.2f}" for k, v in parts.items()) + f" [{smi}]")
+        rec["host_ms"], rec["update_pass_ms"] = host, parts
+
+    ts, rec["card_vs_cpu"] = baseline_card_vs_cpu(agent, state[0], algo)
+    return rec, launches, (agent, ts)
+
+
+def baseline_card_vs_cpu(agent, ts, algo: str):
+    """One update pass of a baseline on the card and on the CPU from
+    copies of one state with the same draws; the largest differences,
+    each against its bound in CARD_CPU_TOL. Returns (card state,
+    differences)."""
+    cfg = agent.cfg
+    cpu_env = make(cfg.env.name, num_envs=cfg.num_envs, random_init=True,
+                   device="cpu")
+    cpu_agent = make_agent(cfg.algo.name, cpu_env, cfg, device="cpu")
+    draws = agent.draw_update(ts)
+    cpu_ts = ts.to("cpu")
+    table = ts.replay.target_action.clone()
+    ts, logs = agent.update_once(ts, draws)
+    t0 = time.time()
+    cpu_ts, cpu_logs = cpu_agent.update_once(cpu_ts, to_device(draws, "cpu"))
+    cpu_s = time.time() - t0
+
+    def diff(xs, ys):
+        return max(float((x.cpu() - y).abs().max()) for x, y in zip(xs, ys))
+
+    got = {k: diff(v, baseline_tensors(cpu_ts)[k])
+           for k, v in baseline_tensors(ts).items()}
+    got["logs (max relative)"] = max(
+        abs(float(logs[k]) - float(cpu_logs[k]))
+        / max(abs(float(cpu_logs[k])), 1e-6) for k in logs)
+    if algo in ("dipo", "diffq"):
+        card_t = ts.replay.target_action
+        cpu_t = cpu_ts.replay.target_action
+        got["target actions (max)"] = diff([card_t], [cpu_t])
+        got["target actions (mean over the moved)"] = float(
+            (card_t - cpu_t.to(card_t.device)).abs()[card_t != table].mean())
+    for k, v in got.items():
+        ok = v <= CARD_CPU_TOL[k]
+        log("14 baselines", f"{algo} card vs CPU, one update pass: {k} "
+            f"|diff| {v:.3e} (bound {CARD_CPU_TOL[k]:g}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{algo}: card and CPU disagree on {k}")
+    log("14 baselines", f"{algo}: the CPU's update pass took {cpu_s:.1f} s")
+    return ts, got
+
+
+def baseline_main(algo: str, smi: str):
+    """`train.main` for `algo` with the stock preset on antmaze-v1 (256
+    envs): warm-up, BASELINE_MAIN_ITERS iterations with an eval every two,
+    a light checkpoint at the second eval, the final full one, which must
+    reload bit for bit; the light one holds no replay row. Checks the
+    substep kernel's launches (once an env step of the train env and of
+    the eval env). Returns (record, launches)."""
+    import tempfile
+
+    from ddiffpg_tpu_torch import train
+    from ddiffpg_tpu_torch.utils import checkpoint as ckpt
+
+    cfg = baseline_config(algo)
+    warm, iters = cfg.algo.warm_up, BASELINE_MAIN_ITERS
+    made, make_envs = [], train.make_envs
+
+    def recording_make_envs(*a, **k):
+        made.extend(make_envs(*a, **k))
+        return made[-2:]
+
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()     # the earlier agents' states
+    with tempfile.TemporaryDirectory() as tmp:
+        train.make_envs = recording_make_envs
+        try:
+            t0 = time.time()
+            ts = train.main([
+                f"algo={algo}", "env.name=antmaze-v1", "seed=0",
+                "eval_freq=2", "ckpt_freq_mult=1",
+                f"max_step={(warm + iters) * cfg.num_envs}",
+                f"logdir={tmp}", "run_name=smoke"])
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        finally:
+            train.make_envs = make_envs
+        peak = torch.cuda.max_memory_allocated() - held
+        train_env, eval_env = made[:2]
+        launches = {"train": train_env.env.kernel.launches,
+                    "eval": eval_env.env.kernel.launches}
+        want = {"train": warm + cfg.algo.horizon_len * iters,
+                "eval": 2 * eval_env.max_episode_length}
+        run = Path(tmp) / "smoke"
+        recs = [json.loads(x) for x in
+                (run / "metrics.jsonl").read_text().splitlines()]
+        times = {}
+        for r in recs:
+            for k, v in r.items():
+                if k.startswith("time/"):
+                    times.setdefault(k[5:], []).append(v)
+        names = sorted(p.name for p in run.glob("ckpt_*.pt"))
+        evals = sum("eval/return" in r for r in recs)
+        log("14 baselines", f"{algo} train.main: {wall:.1f} s; substep "
+            f"launches {launches} (want {want}); {evals} evals; checkpoints "
+            f"{names}; " + ", ".join(f"{k} {v}" for k, v in
+                                     sorted(times.items()))
+            + f"; peak memory (its own) {peak / 2**20:.0f} MiB [{smi}]")
+        if launches != want:
+            raise RuntimeError(f"{algo}: the loop's env steps did not each "
+                               "launch the kernel once")
+        if evals != 2 or len(names) != 2:
+            raise RuntimeError(f"{algo}: {evals} evals, checkpoints {names}")
+        light = torch.load(run / names[0], weights_only=False)
+        if any(".replay." in f".{k}" for k in light["tensors"]):
+            raise RuntimeError(f"{algo}: the light checkpoint holds replay "
+                               "rows")
+        env, _ = train.make_envs(cfg, torch.device("cuda"))
+        fresh = make_agent(cfg.algo.name, env, cfg).init()
+        fresh, _ = ckpt.load(run / "ckpt_final.pt", fresh)
+        got, want_t = dict(ckpt.leaves(fresh)), dict(ckpt.leaves(ts))
+        bad = [k for k in want_t if not torch.equal(got[k], want_t[k])]
+        log("14 baselines", f"{algo}: final checkpoint reloaded into a "
+            f"fresh state: {len(want_t)} tensors, {len(bad)} differ")
+        if bad or set(got) != set(want_t):
+            raise RuntimeError(f"{algo}: the reload differs: {bad[:5]}")
+    return {"wall_s": wall, "times": times, "checkpoints": names,
+            "substep_launches": launches,
+            "peak_memory_bytes": peak}, sum(launches.values())
+
+
+def td3_dense(smi: str) -> dict:
+    """TD3 on pointmaze-v1 with dense rewards at the JAX test's config:
+    the train return's early and late means. The gate is finiteness only
+    (the two packages' seeds differ)."""
+    cfg = Config(algo=algo_preset("td3")).override(**TD3_DENSE)
+    env = make("pointmaze-v1", num_envs=cfg.num_envs, reward_type="dense",
+               device="cuda", seed=0)
+    agent = make_agent("TD3", env, cfg)
+    t0 = time.time()
+    ts = agent.warmup(agent.init())
+    rets = []
+    for _ in range(TD3_DENSE_ITERS):
+        ts, logs = agent.train_iter(ts)
+        rets.append(logs["train/return"])
+    rets = torch.stack(rets).tolist()
+    secs = time.time() - t0
+    early, late = float(np.mean(rets[10:30])), float(np.mean(rets[-20:]))
+    log("14 baselines", f"TD3 pointmaze-v1 dense ({TD3_DENSE_ITERS} "
+        f"iterations, {secs:.1f} s): train return early (iterations 10-30) "
+        f"{early:.3f}, late (last 20) {late:.3f} [{smi}]")
+    if not (np.isfinite(early) and np.isfinite(late)):
+        raise RuntimeError("TD3 dense: non-finite returns")
+    return {"early_return": early, "late_return": late, "seconds": secs}
+
+
+def baselines_phase(smi: str):
+    """14: each baseline's timed iterations and card-vs-CPU pass
+    (`baseline_train`), its `train.main` run (`baseline_main`), then TD3
+    dense on pointmaze-v1. Returns (record, substep launches of the
+    baselines' main paths, the agents and states for
+    `baselines_profile`)."""
+    rec, launches, held = {}, 0, {}
+    for algo in BASELINES:
+        r, n, held[algo] = baseline_train(algo, smi)
+        r["main"], n_main = baseline_main(algo, smi)
+        rec[algo] = r
+        launches += n + n_main
+    rec["td3_pointmaze_dense"] = td3_dense(smi)
+    return rec, launches, held
+
+
+def baselines_profile(rec: dict, held: dict, smi: str):
+    """Each baseline's train iteration on the device from a profiler
+    window of 2, after every timed phase: busy ms and the idle share of
+    its timed seconds per iteration."""
+    for algo, (agent, ts) in held.items():
+        state = [ts]
+
+        def train_iter():
+            state[0], _ = agent.train_iter(state[0])
+
+        dev = device_ms(train_iter, 2)
+        if dev is None:
+            log("14 baselines", f"{algo} train iteration on the device: not "
+                "measured (the profiler saw no device activity)")
+            rec[algo]["device_busy_ms_per_iter"] = None
+            rec[algo]["device_idle_share"] = None
+            continue
+        idle = 1 - dev[0] / (rec[algo]["s_per_train_iter"] * 1e3)
+        log("14 baselines", f"{algo} train iteration on the device "
+            f"(torch.profiler, 2 iterations): {dev[2]:.0f} device "
+            f"activities, busy {dev[0]:.2f} ms, of which substep_kernel "
+            f"{dev[1]:.3f} ms; idle {idle:.1%} of the timed iteration "
+            f"[{smi}]")
+        rec[algo]["device_busy_ms_per_iter"] = dev[0]
+        rec[algo]["device_idle_share"] = idle
+        rec[algo]["device_activities_per_iter"] = dev[2]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -1578,6 +1898,15 @@ def main() -> int:
         return 1
 
     # ---------------------------------------------------------- 1. device
+    clock = [time.time()]
+
+    def stamp(what: str):
+        """Log the wall seconds since the last stamp (the smoke's time by
+        phase)."""
+        now = time.time()
+        log("time", f"{what}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
     if torch.backends.cuda.matmul.allow_tf32:
@@ -1628,6 +1957,8 @@ def main() -> int:
         log("2 build", f"{label}: {k.lanes} lanes per env, {k.groups} envs "
             f"per block of {k.lanes * k.groups} threads, {k.shared_bytes} "
             "shared bytes per block")
+
+    stamp("phases 1-2 (the builds)")
 
     # ------------------------------------ 3. ant kernel vs plain on the card
     init_qpos = np.asarray(ant_env.model.init_qpos)
@@ -1694,6 +2025,8 @@ def main() -> int:
             f"{panda_plain_ms[task]:.2f} ms, bound {panda_bound[task][0]:.5f}"
             f" ms ({panda_bound[task][1]}, {panda_bound[task][2]} flops per "
             f"env per substep) [{smi}]")
+
+    stamp("phases 3-3p (kernels vs plain)")
 
     # ---------------------------------------------------- 4. antmaze-v1 slice
     gen = torch.Generator(device="cuda")
@@ -1789,41 +2122,57 @@ def main() -> int:
     device_split(*ant_split, "antmaze-v1", smi)
     device_split(*drawer_split, "PandaDrawerMultiJoints-v3", smi)
 
+    stamp("phases 4-8 (collects, probes, device splits)")
+
     # ------------------------------------------- 9. DDiffPG train iteration
     train, train_launches = train_phase(smi)
+    stamp("phase 9 (train)")
 
     # --------------------------------------- 10. recluster, eval, the loop
     dtw_rec = dtw_phase(smi)
     recluster, dtw_launches = recluster_phase(smi)
     loop = loop_phase(smi)
     loop_launches = sum(loop["substep_launches"].values())
+    stamp("phase 10 (the loop)")
 
     # ----------------------------------------- 11. the other antmazes
     mazes, maze_launches, maze_entries, dtw_maze, v3_split = mazes_phase(
         smi, maze_kernels, cfg)
+    stamp("phase 11 (mazes)")
 
     # ------------------------------------------ 12. Panda ee control
     ee, ee_launches, ee_split, dtw_ee = panda_ee_phase(smi, cfg)
+    stamp("phase 12 (Panda ee)")
 
     # --------------------------------- 13. pointmaze and the entry point
     points, v2_main_launches, point_split = pointmaze_phase(smi, cfg)
     maze_launches["antmaze-v2"] += v2_main_launches
+    stamp("phase 13 (pointmaze, entry points)")
 
-    # device time of the new collect paths, after every timed phase
+    # ----------------------------------------------------- 14. the baselines
+    baselines, baseline_launches, held = baselines_phase(smi)
+    stamp("phase 14 (baselines)")
+
+    # device time of the new collect paths and the baselines' iterations,
+    # after every timed phase
     device_split(*v3_split, "antmaze-v3", smi)
     device_split(*ee_split, "PandaDrawerMulti-v3 (ee)", smi)
     device_split(*point_split, "pointmaze-v1", smi)
+    baselines_profile(baselines, held, smi)
+    stamp("profiler windows")
 
-    # ---------------------------------------------------------- 14. result
+    # ---------------------------------------------------------- 15. result
     print(json.dumps({"train": train}))
     print(json.dumps({"loop": {"dtw": dtw_rec, "recluster": recluster,
                                "run": loop, "card": smi}}))
     print(json.dumps({"envs": {"mazes": mazes, "panda_ee": ee,
                                "pointmaze": points, "card": smi}}))
+    print(json.dumps({"baselines": {**baselines, "card": smi}}))
     print(json.dumps({"kernels": [
         kernel_entry("substep_ant",
-                     ant_launches + train_launches + loop_launches, ant_err,
-                     ant_ms, ant_plain_ms, ant_bound),
+                     ant_launches + train_launches + loop_launches
+                     + baseline_launches, ant_err, ant_ms, ant_plain_ms,
+                     ant_bound),
         kernel_entry("substep_panda_drawermulti",
                      drawer_launches + ee_launches["drawer"],
                      panda_err["DrawerMulti"], panda_ms["DrawerMulti"],

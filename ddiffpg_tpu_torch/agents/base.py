@@ -1,19 +1,59 @@
-"""Shared agent machinery: episode trackers, target-policy smoothing, the
-C51 critic loss and the DIPO action gradient.
+"""Shared agent machinery: observation normalisation, episode trackers,
+exploration noise, target-policy smoothing, the C51 critic loss and the
+DIPO action gradient.
 
-Counterpart of `ddiffpg_tpu/agents/base.py` (:92-232). The optimizer chains
+Counterpart of `ddiffpg_tpu/agents/base.py` (:57-232). The optimizer chains
 (`make_optimizer`, `apply_update`) are in `ops/optim.py`. Functions that
 the JAX package vmaps over the group axis take `[G, b, ...]` tensors here.
+A policy is any module with `act(obs, *, generator, x_init, noise)`.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
 
-from ddiffpg_tpu_torch.ops import distributional, optim
-from ddiffpg_tpu_torch.ops.noise import add_normal_noise
+from ddiffpg_tpu_torch.ops import distributional, optim, schedules
+from ddiffpg_tpu_torch.ops import running_stats as rs
+from ddiffpg_tpu_torch.ops.noise import (add_mixed_normal_noise,
+                                         add_normal_noise)
+
+
+def update_rms(rms: rs.RunningMeanStd, x: torch.Tensor) -> rs.RunningMeanStd:
+    """Fold the batch x [N, D] into `rms` with its central moments. On one
+    card the JAX package's cross-shard terms vanish (the between-shard
+    spread is exactly 0), so this is `rs.update`."""
+    return rs.update(rms, x)
+
+
+def norm_obs(cfg, obs_rms: rs.RunningMeanStd | None,
+             obs: torch.Tensor) -> torch.Tensor:
+    """obs normalised by `obs_rms` when `cfg.algo.obs_norm` is on, else
+    obs as it is."""
+    if cfg.algo.obs_norm and obs_rms is not None:
+        return rs.normalize(obs_rms, obs)
+    return obs
+
+
+def to_device(x, device):
+    """A copy of a state's tensors, modules, NamedTuples and lists on
+    `device` (a copy on any device); None stays None."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x.to(device, copy=True)
+    if isinstance(x, torch.nn.Module):
+        return copy.deepcopy(x).to(device)
+    if isinstance(x, (list, tuple)):
+        vals = [to_device(v, device) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else type(x)(vals)
+    if dataclasses.is_dataclass(x):
+        return type(x)(**{f.name: to_device(getattr(x, f.name), device)
+                          for f in dataclasses.fields(x)})
+    raise TypeError(type(x))
 
 
 @torch.no_grad()
@@ -84,10 +124,47 @@ def update_stats(st: EpisodeStats, reward, done) -> EpisodeStats:
 
 
 class TargetDraws(NamedTuple):
-    """The standard-normal draws of `tgt_policy_action` for B rows."""
-    x_init: torch.Tensor      # [B, A]
-    step_noise: torch.Tensor  # [K, B, A]
-    noise: torch.Tensor       # [B, A]
+    """The standard-normal draws of `tgt_policy_action` (and of
+    `explore_action`) for B rows: the policy's (a diffusion actor's
+    initial sample and step noise; None for a deterministic one) and the
+    added noise's."""
+    x_init: torch.Tensor | None      # [B, A]
+    step_noise: torch.Tensor | None  # [K, B, A]
+    noise: torch.Tensor | None       # [B, A]
+
+
+def noise_std(noise_cfg, it):
+    """The decayed exploration std of 'fixed' noise at iteration `it` (the
+    reference's noise_scheduler; decay is None in every shipped config)."""
+    if noise_cfg.decay == "linear":
+        return schedules.linear(it, noise_cfg.std_max, noise_cfg.std_min,
+                                noise_cfg.lin_decay_iters)
+    if noise_cfg.decay == "exp":
+        return schedules.exponential(it, noise_cfg.std_max,
+                                     noise_cfg.exp_decay_rate,
+                                     noise_cfg.std_min)
+    return noise_cfg.std_max
+
+
+@torch.no_grad()
+def explore_action(policy, obs, noise_cfg, noise_val=None, *,
+                   generator: torch.Generator | None = None,
+                   draws: TargetDraws | None = None):
+    """The policy's action plus exploration noise, 'fixed' (N(0,
+    noise_val), default std_max) or 'mixed' (std annealed across the
+    batch), in [-1, 1] (the reference's get_actions, td3.py:54-73)."""
+    d = draws or TargetDraws(None, None, None)
+    actions = policy.act(obs, generator=generator, x_init=d.x_init,
+                         noise=d.step_noise)
+    if noise_cfg.type == "fixed":
+        std = noise_cfg.std_max if noise_val is None else noise_val
+        return add_normal_noise(actions, std, out_bounds=(-1.0, 1.0),
+                                generator=generator, noise=d.noise)
+    if noise_cfg.type == "mixed":
+        return add_mixed_normal_noise(
+            actions, noise_cfg.std_min, noise_cfg.std_max,
+            out_bounds=(-1.0, 1.0), generator=generator, noise=d.noise)
+    raise ValueError(f"unknown noise type {noise_cfg.type!r}")
 
 
 @torch.no_grad()

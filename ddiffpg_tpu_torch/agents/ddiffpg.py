@@ -34,6 +34,7 @@ from ddiffpg_tpu_torch.models.diffusion import DiffusionPolicy
 from ddiffpg_tpu_torch.models.mlp import DistributionalDoubleQ, q_min
 from ddiffpg_tpu_torch.modes.cluster import ClusterManager
 from ddiffpg_tpu_torch.ops import optim
+from ddiffpg_tpu_torch.ops import running_stats as rs
 from ddiffpg_tpu_torch.ops.embedding import add_embedding, append_embedding
 from ddiffpg_tpu_torch.ops.noise import (add_mixed_normal_noise,
                                          add_normal_noise)
@@ -122,20 +123,11 @@ class DDiffPGState:
     global_step: torch.Tensor               # int64 scalar
     density_grid: torch.Tensor              # [res, res] int32
 
+    obs_rms: rs.RunningMeanStd | None = None   # with algo.obs_norm
+
     def to(self, device) -> "DDiffPGState":
         """A copy of the whole state on `device` (a copy on any device)."""
-        def mv(x):
-            if isinstance(x, torch.Tensor):
-                return x.to(device, copy=True)
-            if isinstance(x, torch.nn.Module):
-                return copy.deepcopy(x).to(device)
-            if isinstance(x, (list, tuple)):
-                vals = [mv(v) for v in x]
-                return type(x)(*vals) if hasattr(x, "_fields") \
-                    else type(x)(vals)
-            raise TypeError(type(x))
-        return DDiffPGState(**{f.name: mv(getattr(self, f.name))
-                               for f in dataclasses.fields(self)})
+        return base.to_device(self, device)
 
 
 class UpdateDraws(NamedTuple):
@@ -167,9 +159,6 @@ class AgentDDiffPG:
         if torch.device(inner.device) != self.device:
             raise ValueError(f"env on {inner.device}, agent on {self.device}")
         a = cfg.algo
-        if a.obs_norm:
-            raise NotImplementedError(
-                "algo.obs_norm is not ported yet (ROADMAP.md, Queue 1)")
         self.env = env
         self.cfg = cfg
         self.obs_dim = env.obs_dim
@@ -248,13 +237,25 @@ class AgentDDiffPG:
                                            self.device),
             global_step=torch.zeros((), dtype=torch.int64,
                                     device=self.device),
-            density_grid=self._density_grid0.to(self.device))
+            density_grid=self._density_grid0.to(self.device),
+            obs_rms=(rs.RunningMeanStd.create((self.obs_dim,),
+                                              device=self.device)
+                     if a.obs_norm else None))
 
     # ----------------------------------------------------------- exploration
+
+    def _norm_obs(self, ts: DDiffPGState, obs: torch.Tensor) -> torch.Tensor:
+        """obs normalisation of the acting path only: as in the JAX agent
+        (and the reference), the update pass trains on raw obs, and the
+        raw obs is normalised before the embedding is appended."""
+        return base.norm_obs(self.cfg, ts.obs_rms, obs)
 
     def _env_step(self, ts: DDiffPGState, p, random: bool) -> DDiffPGState:
         a = self.cfg.algo
         E, A = self.env.num_envs, self.action_dim
+        if a.obs_norm and ts.obs_rms is not None:
+            ts = dataclasses.replace(
+                ts, obs_rms=base.update_rms(ts.obs_rms, ts.obs))
         if random:
             action = torch.rand((E, A), generator=self.generator,
                                 device=self.device) * 2.0 - 1.0
@@ -262,9 +263,9 @@ class AgentDDiffPG:
             num_modes = max(self.num_groups - 1, 0) if (
                 a.exp.mode_embedding and a.use_embedding) else 0
             action = explore_actions(
-                ts.actor, ts.obs, p, ts.embeddings, num_modes,
-                a.noise.std_min, a.noise.std_max, noise_type=a.noise.type,
-                generator=self.generator)
+                ts.actor, self._norm_obs(ts, ts.obs), p, ts.embeddings,
+                num_modes, a.noise.std_min, a.noise.std_max,
+                noise_type=a.noise.type, generator=self.generator)
         env_state, next_obs, reward, done, info = self.env.step(
             ts.env_state, action)
         stats = base.update_stats(ts.stats, reward, done)
@@ -504,7 +505,7 @@ class AgentDDiffPG:
                 it = (steps - self._lin_start) / max(self.cfg.num_envs, 1)
                 p = min(it / self._lin_total, 1.0)
         else:
-            raise NotImplementedError(a.exp.type)
+            raise ValueError(f"unknown exp type {a.exp.type!r}")
         if steps >= a.exp.stop_ratio * self.cfg.max_step:
             held = a.exp.hold_until_mode and self.num_clusters == 0
             if a.exp.hold_until_goals > 0 and \
@@ -582,9 +583,10 @@ class AgentDDiffPG:
                    generator: torch.Generator | None = None,
                    x_init: torch.Tensor | None = None,
                    noise: torch.Tensor | None = None) -> torch.Tensor:
-        """The eval policy: the actor with the zero embedding
-        (ddiffpg_main.py:87-89)."""
-        emb_obs = append_embedding(obs, torch.zeros(self.embed_dim,
-                                                    device=obs.device))
+        """The eval policy: the actor on the (normalised, with obs_norm)
+        obs with the zero embedding (ddiffpg_main.py:84-89)."""
+        emb_obs = append_embedding(self._norm_obs(ts, obs),
+                                   torch.zeros(self.embed_dim,
+                                               device=obs.device))
         return ts.actor.act(emb_obs, generator=generator or self.generator,
                             x_init=x_init, noise=noise)

@@ -1,7 +1,9 @@
-"""The critics' and the novelty nets' MLPs.
+"""The policies', the critics' and the novelty nets' MLPs.
 
 Counterpart of `ddiffpg_tpu/models/mlp.py`: `MLPNet` (ELU, hidden 512,
-256, 128), `DistributionalDoubleQ` (:114) and `RNDModel` (:194). Layers
+256, 128), the baselines' `TanhMLPPolicy` (:40), `TanhDiagGaussianMLPPolicy`
+(:67) and `DoubleQ` (:98), `DistributionalDoubleQ` (:114) and `RNDModel`
+(:194). Layers
 are initialised with flax's laws (lecun-normal kernels for `Dense`,
 orthogonal(sqrt 2) for the RND nets, zero biases), so fresh modules have
 the JAX package's weight statistics; `utils/convert.py` loads its weights
@@ -14,7 +16,7 @@ holds every layer as one `[G_max, 2, in, out]` tensor (groups, then the
 heads q1 and q2), and its forward pass runs the first `G` groups' both
 heads as one batched matrix product per layer (`torch.baddbmm` over
 `G * 2` matrices). One backward pass then gives every group's gradient,
-and rows `G..` get none.
+and rows `G..` get none. TD3 and DIPO use it at one row.
 """
 
 from __future__ import annotations
@@ -57,6 +59,84 @@ class MLPNet(nn.Module):
         for layer in self.dense[:-1]:
             x = F.elu(layer(x))
         return self.dense[-1](x)
+
+
+class TanhMLPPolicy(nn.Module):
+    """Deterministic tanh policy (the TD3 actor)."""
+
+    def __init__(self, obs_dim: int, action_dim: int,
+                 hidden: Sequence[int] = DEFAULT_HIDDEN,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.net = MLPNet(obs_dim, action_dim, hidden, generator=generator)
+
+    def forward(self, obs):
+        return torch.tanh(self.net(obs))
+
+    @torch.no_grad()
+    def act(self, obs, *, generator=None, x_init=None, noise=None):
+        """The action [B, A]; it draws nothing."""
+        return self(obs)
+
+
+class TanhDiagGaussianMLPPolicy(nn.Module):
+    """Squashed Gaussian (the SAC actor): `forward` gives (mu, log_std),
+    log_std clipped to [log_std_min, log_std_max]."""
+
+    def __init__(self, obs_dim: int, action_dim: int,
+                 hidden: Sequence[int] = DEFAULT_HIDDEN,
+                 log_std_min: float = -5.0, log_std_max: float = 5.0,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.net = MLPNet(obs_dim, 2 * action_dim, hidden,
+                          generator=generator)
+        self.log_std_min, self.log_std_max = log_std_min, log_std_max
+
+    def forward(self, obs):
+        mu, log_std = torch.chunk(self.net(obs), 2, dim=-1)
+        return mu, torch.clamp(log_std, self.log_std_min, self.log_std_max)
+
+    @staticmethod
+    def sample_logprob(mu, log_std, *,
+                       generator: torch.Generator | None = None,
+                       noise: torch.Tensor | None = None):
+        """rsample and the tanh-squashed log-prob [B, 1], with log|d tanh/dx|
+        in the stable softplus form. `noise` is the standard normal draw
+        (from `generator` when not given)."""
+        if noise is None:
+            noise = torch.randn(mu.shape, generator=generator,
+                                device=mu.device, dtype=mu.dtype)
+        std = torch.exp(log_std)
+        x = mu + std * noise
+        base_lp = -0.5 * (((x - mu) / std) ** 2 + 2 * log_std
+                          + math.log(2 * math.pi))
+        jac = 2.0 * (math.log(2.0) - x - F.softplus(-2.0 * x))
+        return torch.tanh(x), (base_lp - jac).sum(-1, keepdim=True)
+
+    @torch.no_grad()
+    def act(self, obs, *, generator=None, x_init=None, noise=None):
+        """A sampled action [B, A]; `x_init` is its standard-normal draw
+        (from `generator` when not given)."""
+        return self.sample_logprob(*self(obs), generator=generator,
+                                   noise=x_init)[0]
+
+
+class DoubleQ(nn.Module):
+    """Two scalar Q MLPs on [obs, action] (the SAC critic)."""
+
+    def __init__(self, obs_dim: int, action_dim: int,
+                 hidden: Sequence[int] = DEFAULT_HIDDEN,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.q1 = MLPNet(obs_dim + action_dim, 1, hidden, generator=generator)
+        self.q2 = MLPNet(obs_dim + action_dim, 1, hidden, generator=generator)
+
+    def params(self) -> list:
+        return list(self.parameters())
+
+    def forward(self, obs, action):
+        x = torch.cat([obs, action], dim=-1)
+        return self.q1(x), self.q2(x)
 
 
 class DistributionalDoubleQ(nn.Module):

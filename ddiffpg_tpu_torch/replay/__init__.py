@@ -1,1 +1,2 @@
-"""Replay stores of the port (DDiffPG's episodic store)."""
+"""Replay stores of the port: DDiffPG's episodic store and the baselines'
+flat transition ring."""

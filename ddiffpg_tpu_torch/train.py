@@ -1,19 +1,21 @@
-"""Training entry point of the port: DDiffPG on one card.
+"""Training entry point of the port: DDiffPG and the baselines on one card.
 
     python -m ddiffpg_tpu_torch.train algo=ddiffpg env.name=antmaze-v1
+    python -m ddiffpg_tpu_torch.train algo=dipo env.name=antmaze-v1
     python -m ddiffpg_tpu_torch.train device=cpu num_envs=8 eval_num_envs=4 \
         algo.warm_up=16 algo.batch_size=64 max_step=160
 
-Counterpart of the root `train.py` (DDiffPG only: the baselines are not
-ported). Dotted key=value pairs override the typed config
+Counterpart of the root `train.py`: `algo=` ddiffpg (the default), td3,
+sac, dipo or diffq. Dotted key=value pairs override the typed config
 (`ddiffpg_tpu_torch/config.py`), before and again after the per-env
 `preprocess`. `device=auto` (the default) is the CUDA card and raises
 without one; `device=cpu` runs everything on the CPU.
 
-The loop: warm-up with random actions, the initial recluster, then train
-iterations; every `eval_freq` iterations a recluster (after the first) and
-an eval rollout; every `eval_freq * ckpt_freq_mult` a light checkpoint
-(replay left out; full with `ckpt_full`); logs every `log_freq`; a full
+The loop: warm-up with random actions, the initial recluster (DDiffPG),
+then train iterations; every `eval_freq` iterations a recluster (DDiffPG,
+after the first) and an eval rollout; every `eval_freq * ckpt_freq_mult` a
+light checkpoint (replay left out; full with `ckpt_full`); logs every
+`log_freq`; a full
 checkpoint at the end. SIGUSR1 asks for a full checkpoint at the next loop
 top, SIGTERM for a full checkpoint and a clean stop, SIGINT exits. Besides
 the JAX package's metrics it logs the loop's own costs under `time/`
@@ -149,13 +151,14 @@ def main(argv=None):
 
 def _loop(cfg, agent, eval_env, eval_gen, generators, requests, resume,
           logger, device):
+    is_ddiffpg = cfg.algo.name == "DDiffPG"
     ts = agent.init()
     need_warmup = True
     if resume:
         ts, meta = ckpt.load(resume, ts)
         for k, g in generators.items():
             g.set_state(meta["generators"][k])
-        if meta.get("last_cluster") is not None:
+        if is_ddiffpg and meta.get("last_cluster") is not None:
             agent.cluster_manager.scheduler.last_cluster = \
                 meta["last_cluster"]
         if meta.get("lin_start") is not None:
@@ -168,12 +171,14 @@ def _loop(cfg, agent, eval_env, eval_gen, generators, requests, resume,
                            "fresh, rewarming + reclustering")
         else:
             need_warmup = False
-            # re-stamp the walls of the restored density grid, so coverage
-            # counts free cells only
-            grid0 = agent._density_grid0.to(device)
-            ts.density_grid = torch.where(grid0 < 0, grid0, ts.density_grid)
-            agent.num_groups = int(meta.get("num_groups", 1))
-            agent.num_clusters = agent.num_groups - 1
+            if is_ddiffpg:
+                # re-stamp the walls of the restored density grid, so
+                # coverage counts free cells only
+                grid0 = agent._density_grid0.to(device)
+                ts.density_grid = torch.where(grid0 < 0, grid0,
+                                              ts.density_grid)
+                agent.num_groups = int(meta.get("num_groups", 1))
+                agent.num_clusters = agent.num_groups - 1
             logger.console(f"resumed from {resume} "
                            f"(num_groups={meta.get('num_groups')})")
 
@@ -185,10 +190,12 @@ def _loop(cfg, agent, eval_env, eval_gen, generators, requests, resume,
         return out, time.perf_counter() - t0
 
     def full_meta():
-        meta = {"num_groups": agent.num_groups,
-                "last_cluster": agent.cluster_manager.scheduler.last_cluster,
+        meta = {"num_groups": getattr(agent, "num_groups", 1),
                 "generators": {k: g.get_state()
                                for k, g in generators.items()}}
+        if is_ddiffpg:
+            meta["last_cluster"] = \
+                agent.cluster_manager.scheduler.last_cluster
         if hasattr(agent, "_lin_start"):
             meta["lin_start"] = agent._lin_start
             meta["lin_total"] = agent._lin_total
@@ -215,8 +222,9 @@ def _loop(cfg, agent, eval_env, eval_gen, generators, requests, resume,
         ts, secs = timed(lambda: agent.warmup(ts))
         logger.log({"time/warmup_s": secs}, int(ts.global_step))
         logger.console(f"warmup done in {secs:.1f}s")
-        recluster(int(ts.global_step))
-        logger.console(f"initial clusters: {agent.num_clusters}")
+        if is_ddiffpg:
+            recluster(int(ts.global_step))
+            logger.console(f"initial clusters: {agent.num_clusters}")
 
     global_steps = int(ts.global_step)
     iter_t = 0
@@ -242,7 +250,7 @@ def _loop(cfg, agent, eval_env, eval_gen, generators, requests, resume,
             logger.console("SIGTERM: stopping after full checkpoint")
             break
         if iter_t % cfg.eval_freq == 0:
-            if iter_t > 0:
+            if is_ddiffpg and iter_t > 0:
                 recluster(global_steps)
                 gc = agent.last_goal_counts
                 logger.console(
@@ -261,6 +269,7 @@ def _loop(cfg, agent, eval_env, eval_gen, generators, requests, resume,
                 f"success {metrics['eval/success_rate']:.2f} "
                 f"len {metrics['eval/episode_length']:.0f}")
             if iter_t % (cfg.eval_freq * cfg.ckpt_freq_mult) == 0 and iter_t:
+                # a light checkpoint leaves the replay out
                 skip = () if cfg.ckpt_full else ("replay",)
                 save(f"ckpt_{global_steps}.pt", skip,
                      "full" if cfg.ckpt_full else "light", global_steps)

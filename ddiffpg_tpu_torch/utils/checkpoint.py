@@ -1,17 +1,20 @@
-"""Full train-state checkpoints of the port's `DDiffPGState`.
+"""Full train-state checkpoints of the port's agent states (DDiffPG's
+`DDiffPGState`, the baselines' `TD3State` and SAC's `SACState`).
 
 Counterpart of `ddiffpg_tpu/utils/checkpoint.py:save` and `load`. Every
 tensor of the state (the modules' parameters and buffers, the adam states,
-the replay tables, the env state, obs, stats, `global_step` and the
-density grid) is moved to the CPU and written with `torch.save`, keyed by
-its path in the state (`critics.weight.0`, `replay.obs`, ...), beside the
-host meta the caller passes (the train loop's: `num_groups`, the
-scheduler's `last_cluster`, `lin_start`/`lin_total` and the generators'
-states, which stand in for the JAX state's key). `skip` names top-level
-fields left out: `("replay",)` writes a light checkpoint, whose load keeps
-the example state's fresh replay. The write is atomic (a temporary file,
-then a rename). The JAX package's pickles hold JAX treedefs and are not
-read here; `utils/convert.py:ddiffpg_state` carries a JAX state across.
+the replay tables, the env state, obs, stats, `global_step`, the density
+grid, `obs_rms`, SAC's `log_alpha`) is moved to the CPU and written with
+`torch.save`, keyed by its path in the state (`critics.weight.0`,
+`replay.obs`, ...), beside the host meta the caller passes (the train
+loop's: `num_groups`, the scheduler's `last_cluster`,
+`lin_start`/`lin_total` and the generators' states, which stand in for the
+JAX state's key). `skip` names fields left out by their dotted path:
+`("replay",)` writes a light
+checkpoint, whose load keeps the example state's fresh replay. The write
+is atomic (a temporary file, then a rename). The JAX package's pickles
+hold JAX treedefs and are not read here; `utils/convert.py` carries a JAX
+state across.
 """
 
 from __future__ import annotations
@@ -49,12 +52,12 @@ def _join(prefix: str, name: str) -> str:
 
 
 def _kept(path: str, skip) -> bool:
-    return path.split(".", 1)[0] not in skip
+    return not any(path == s or path.startswith(s + ".") for s in skip)
 
 
 def save(path, state, host_meta: dict | None = None, skip: tuple = ()) -> int:
-    """Write `state` (less the top-level fields in `skip`) and `host_meta`
-    to `path`; returns the file's size in bytes."""
+    """Write `state` (less the fields whose dotted paths `skip` names) and
+    `host_meta` to `path`; returns the file's size in bytes."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     tensors = {k: v.detach().cpu() for k, v in leaves(state)

@@ -1,4 +1,4 @@
-"""The JAX package's parameters and train state, as numpy, into the port.
+"""The JAX package's parameters and train states, as numpy, into the port.
 
 Takes numpy only (convert a JAX tree with `jax.tree.map(np.asarray, ...)`
 where JAX is at hand), so loading needs no JAX. Flax `Dense` kernels are
@@ -66,6 +66,48 @@ def rnd_arrays(flax_params: Mapping) -> list:
     return out
 
 
+def dense_arrays(layers: Mapping) -> list:
+    """Flax `Dense_0..` layers -> [weight [out, in], bias] arrays in the
+    order of an `nn.ModuleList` of `nn.Linear`s' parameters."""
+    out = []
+    for i in range(len(layers)):
+        out += [np.asarray(layers[f"Dense_{i}"]["kernel"], np.float32).T,
+                np.asarray(layers[f"Dense_{i}"]["bias"], np.float32)]
+    return out
+
+
+def mlp_policy_arrays(flax_params: Mapping) -> list:
+    """A `TanhMLPPolicy` or `TanhDiagGaussianMLPPolicy` tree -> arrays in
+    the order of the port's module's `parameters()`."""
+    return dense_arrays(_params(flax_params)["MLPNet_0"])
+
+
+def double_q_arrays(flax_params: Mapping) -> list:
+    """A `DoubleQ` tree -> arrays in the order of the port's `DoubleQ`
+    `parameters()` (q1's layers, then q2's)."""
+    p = _params(flax_params)
+    return dense_arrays(p["q1"]) + dense_arrays(p["q2"])
+
+
+def baseline_diffusion_arrays(flax_params: Mapping) -> list:
+    """A baseline `Diffusion` tree -> arrays in the order of the port's
+    `models.baseline_diffusion.Diffusion.parameters()`."""
+    return dense_arrays(_params(flax_params)["model"])
+
+
+def _lead(tree):
+    """Every leaf of a nested mapping with a leading axis of 1."""
+    if isinstance(tree, Mapping):
+        return {k: _lead(v) for k, v in tree.items()}
+    return np.asarray(tree)[None]
+
+
+def one_row_critic_arrays(flax_params: Mapping) -> list:
+    """A single (unstacked) `DistributionalDoubleQ` tree, the TD3 and DIPO
+    critic -> arrays of the port's critic at one row."""
+    return critic_arrays(_lead(_params(flax_params)))
+
+
 def find_adam(opt_state):
     """The ScaleByAdamState inside an optax chain's state."""
     if all(hasattr(opt_state, f) for f in ("mu", "nu", "count")):
@@ -118,6 +160,49 @@ def load_diffusion(policy: torch.nn.Module, flax_params: Mapping):
     return policy
 
 
+def _stats(st, dev):
+    from ddiffpg_tpu_torch.agents.base import EpisodeStats, Tracker
+
+    def tracker(tr):
+        return Tracker(_t(tr.buf, np.float32, dev), _t(tr.ptr, np.int32, dev))
+
+    return EpisodeStats(_t(st.current_returns, np.float32, dev),
+                        _t(st.current_lengths, np.float32, dev),
+                        tracker(st.return_tracker), tracker(st.step_tracker))
+
+
+def _rms(rms, dev):
+    from ddiffpg_tpu_torch.ops.running_stats import RunningMeanStd
+
+    if rms is None:
+        return None
+    return RunningMeanStd(*(_t(x, np.float32, dev) for x in rms))
+
+
+def _env_state(es, dev):
+    from ddiffpg_tpu_torch.envs.base import EnvState
+
+    return EnvState(_t(es.qpos, np.float32, dev),
+                    _t(es.qvel, np.float32, dev), _t(es.t, np.int32, dev))
+
+
+def _intrinsic(like, ji, dev):
+    """The JAX intrinsic state into the port's `like`'s RND net."""
+    from ddiffpg_tpu_torch.intrinsic import IntrinsicState
+
+    load_params(like.net.params(), rnd_arrays(ji.params))
+    return IntrinsicState(
+        net=like.net, opt_state=adam_state(ji.opt_state, rnd_arrays, dev),
+        rms=_rms(ji.rms, dev), update_step=_t(ji.update_step, np.int32, dev))
+
+
+def _named(cls, src, like, dev):
+    """A NamedTuple of tensors from the JAX one's numpy fields, in the
+    dtypes of the port's `like`."""
+    return cls(**{f: _t(getattr(src, f), device=dev).to(
+        getattr(like, f).dtype) for f in cls._fields})
+
+
 def ddiffpg_state(agent, jstate, env_state=None):
     """A JAX `DDiffPGState` with numpy leaves -> the port's DDiffPGState
     for `agent` (an `agents.ddiffpg.AgentDDiffPG`), on the agent's device.
@@ -125,14 +210,10 @@ def ddiffpg_state(agent, jstate, env_state=None):
     Carried across: the actor, the stacked critics and targets, the adam
     states of the actor, the critics (per row) and RND, the embeddings,
     the intrinsic state, the replay tables, the episode stats, the density
-    grid (its leading device axis dropped), the obs and `global_step`. The
-    JAX env state holds per-env PRNG keys the port has no use for; its
-    qpos, qvel and t are taken unless `env_state` is given.
+    grid (its leading device axis dropped), the obs, `global_step` and
+    `obs_rms`. The JAX env state holds per-env PRNG keys the port has no
+    use for; its qpos, qvel and t are taken unless `env_state` is given.
     """
-    from ddiffpg_tpu_torch.agents.base import EpisodeStats, Tracker
-    from ddiffpg_tpu_torch.envs.base import EnvState
-    from ddiffpg_tpu_torch.intrinsic import IntrinsicState
-    from ddiffpg_tpu_torch.ops.running_stats import RunningMeanStd
     from ddiffpg_tpu_torch.replay.episodic import EpisodicReplay
 
     dev = agent.device
@@ -141,42 +222,73 @@ def ddiffpg_state(agent, jstate, env_state=None):
     load_params(ts.critics.params(), critic_arrays(jstate.critics))
     load_params(ts.critic_targets.params(),
                 critic_arrays(jstate.critic_targets))
-    ji = jstate.intrinsic
-    net = ts.intrinsic.net
-    load_params(net.params(), rnd_arrays(ji.params))
-    intrinsic = IntrinsicState(
-        net=net, opt_state=adam_state(ji.opt_state, rnd_arrays, dev),
-        rms=RunningMeanStd(*(_t(x, np.float32, dev) for x in ji.rms)),
-        update_step=_t(ji.update_step, np.int32, dev))
-
-    rep = jstate.replay
-    dtypes = {f: ts.replay._asdict()[f].dtype for f in EpisodicReplay._fields}
-    replay = EpisodicReplay(**{
-        f: _t(getattr(rep, f), device=dev).to(dtypes[f])
-        for f in EpisodicReplay._fields})
-
-    def tracker(tr):
-        return Tracker(_t(tr.buf, np.float32, dev), _t(tr.ptr, np.int32, dev))
-
-    st = jstate.stats
-    stats = EpisodeStats(_t(st.current_returns, np.float32, dev),
-                         _t(st.current_lengths, np.float32, dev),
-                         tracker(st.return_tracker), tracker(st.step_tracker))
-    if env_state is None:
-        es = jstate.env_state
-        env_state = EnvState(_t(es.qpos, np.float32, dev),
-                             _t(es.qvel, np.float32, dev),
-                             _t(es.t, np.int32, dev))
     ts.actor_opt = adam_state(jstate.actor_opt, actor_arrays, dev)
     ts.critic_opts = adam_state(jstate.critic_opts, critic_arrays, dev)
     ts.embeddings = _t(jstate.embeddings, np.float32, dev)
-    ts.intrinsic = intrinsic
-    ts.replay = replay
-    ts.env_state = env_state
+    ts.intrinsic = _intrinsic(ts.intrinsic, jstate.intrinsic, dev)
+    ts.replay = _named(EpisodicReplay, jstate.replay, ts.replay, dev)
+    ts.env_state = env_state or _env_state(jstate.env_state, dev)
     ts.obs = _t(jstate.obs, np.float32, dev)
-    ts.stats = stats
+    ts.stats = _stats(jstate.stats, dev)
     ts.global_step = _t(jstate.global_step, np.int64, dev)
     ts.density_grid = _t(np.asarray(jstate.density_grid)[0], np.int32, dev)
+    ts.obs_rms = _rms(jstate.obs_rms, dev)
+    return ts
+
+
+def td3_state(agent, jstate, env_state=None):
+    """A JAX `TD3State` with numpy leaves (TD3's, DIPO's or DiffQ's) ->
+    the port's `TD3State` for `agent` (an `agents.td3.AgentTD3` or a
+    subclass), on the agent's device: the actor and the critic with their
+    targets and adam states, the intrinsic state, the flat replay, the
+    n-step window, the env state (qpos, qvel, t unless `env_state` is
+    given), obs, the episode stats, `global_step` and `obs_rms`. The
+    actor's layout follows the agent: an MLP policy, DIPO's DDPM policy
+    or DiffQ's baseline `Diffusion`."""
+    from ddiffpg_tpu_torch.agents.diffq import AgentDiffQ
+    from ddiffpg_tpu_torch.agents.dipo import AgentDIPO
+    from ddiffpg_tpu_torch.agents.sac import AgentSAC
+    from ddiffpg_tpu_torch.ops.nstep import NStepState
+    from ddiffpg_tpu_torch.replay.flat import FlatReplay
+
+    dev = agent.device
+    if isinstance(agent, AgentDiffQ):
+        actor_fn = baseline_diffusion_arrays
+    elif isinstance(agent, AgentDIPO):
+        actor_fn = actor_arrays
+    else:
+        actor_fn = mlp_policy_arrays
+    critic_fn = (double_q_arrays if isinstance(agent, AgentSAC)
+                 else one_row_critic_arrays)
+    ts = agent.init()
+    for mod, tree in ((ts.actor, jstate.actor_params),
+                      (ts.actor_target, jstate.actor_target)):
+        load_params(mod.parameters(), actor_fn(tree))
+    for mod, tree in ((ts.critic, jstate.critic_params),
+                      (ts.critic_target, jstate.critic_target)):
+        load_params(mod.params(), critic_fn(tree))
+    ts.actor_opt = adam_state(jstate.actor_opt, actor_fn, dev)
+    ts.critic_opt = adam_state(jstate.critic_opt, critic_fn, dev)
+    ts.intrinsic = _intrinsic(ts.intrinsic, jstate.intrinsic, dev)
+    ts.replay = _named(FlatReplay, jstate.replay, ts.replay, dev)
+    ts.nstep = _named(NStepState, jstate.nstep, ts.nstep, dev)
+    ts.env_state = env_state or _env_state(jstate.env_state, dev)
+    ts.obs = _t(jstate.obs, np.float32, dev)
+    ts.stats = _stats(jstate.stats, dev)
+    ts.global_step = _t(jstate.global_step, np.int64, dev)
+    ts.obs_rms = _rms(jstate.obs_rms, dev)
+    return ts
+
+
+def sac_state(agent, jstate, env_state=None):
+    """A JAX `SACState` with numpy leaves -> the port's `SACState` for
+    `agent` (an `agents.sac.AgentSAC`): the JAX state's `core` as
+    `td3_state` reads it, `log_alpha` and alpha's adam state."""
+    dev = agent.device
+    scalar = lambda x: [np.asarray(x, np.float32)]  # noqa: E731
+    ts = td3_state(agent, jstate.core, env_state)
+    ts.log_alpha = _t(jstate.log_alpha, np.float32, dev)
+    ts.alpha_opt = adam_state(jstate.alpha_opt, scalar, dev)
     return ts
 
 

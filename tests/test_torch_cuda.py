@@ -1,7 +1,8 @@
 """The CUDA substep and DTW kernels on the card, against their plain
 PyTorch versions, and the DDiffPG agent on the card: its env steps through
 the kernel, one update pass against the same pass on the CPU, and a
-recluster identical on the card and the CPU.
+recluster identical on the card and the CPU; one update pass of each
+baseline (TD3, SAC, DIPO, DiffQ) on the card against the CPU.
 
 Needs an NVIDIA card and nvcc, and no JAX. Skipped without a card. On the
 card's machine (no JAX, so without the suite's conftest):
@@ -228,6 +229,26 @@ def test_update_once_card_matches_cpu(card, G):
         mask[1:G] = mask[0] & (torch.arange(S, device=card) % 2 == 0)
         ep.set_groups(ts.replay, mask, [0] * G + [-1] * (agent.G_max - G))
     chip_smoke.card_vs_cpu(agent, ts, agent.cfg, G)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["td3", "sac", "dipo", "diffq"])
+def test_baseline_update_once_card_matches_cpu(card, algo):
+    """One update pass of the baseline's stock preset on antmaze-v1 (64
+    envs, batch 1024, 100,000 replay rows after 25 warm-up steps) on the
+    card and on the CPU from copies of one state with the same draws,
+    within chip_smoke.py's bounds (CARD_CPU_TOL)."""
+    from ddiffpg_tpu_torch.agents import make_agent
+    from ddiffpg_tpu_torch.envs import make
+
+    cfg = chip_smoke.baseline_config(algo).override(
+        **{"num_envs": 64, "algo.batch_size": 1024,
+           "algo.memory_size": 100_000, "algo.warm_up": 25})
+    env = make("antmaze-v1", num_envs=64, random_init=True, device=card)
+    agent = make_agent(cfg.algo.name, env, cfg, device=card)
+    ts = agent.warmup(agent.init())
+    assert env.env.kernel.launches == 25
+    chip_smoke.baseline_card_vs_cpu(agent, ts, algo)
 
 
 def _dtw_args(L, D, N, P, seed, device):

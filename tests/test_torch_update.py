@@ -250,12 +250,10 @@ def test_train_iter_on_cpu():
 
 def test_agent_defaults_to_card():
     """Without device="cpu" the agent belongs on the card: with none it
-    raises; and an unported knob names itself."""
+    raises. (`algo.obs_norm` is ported: tests/test_torch_baselines.py::
+    test_obs_norm_every_agent.)"""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default builds there")
     env = make("antmaze-v1", num_envs=E, random_init=True, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA card"):
         make_agent("DDiffPG", env, _cfg(C))
-    with pytest.raises(NotImplementedError, match="obs_norm"):
-        make_agent("DDiffPG", env, _cfg(C).override(
-            **{"algo.obs_norm": True}), device="cpu")
