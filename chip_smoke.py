@@ -37,9 +37,15 @@ antmaze-v1 at 256 envs (timed train iterations through the kernel, DIPO's
 host split by part, one update pass on the card against the CPU each,
 `train.main` each with two evals, a light and a full checkpoint that must
 reload bit for bit) and TD3 on pointmaze-v1 with dense rewards (phase 14);
-last the profiler windows. It prints one line per phase and its wall
+the checkpoint tools on the card (phase 15: eval_ckpt, eval_goals,
+eval_modes, trace_goals, probe_qfield on the final checkpoints of phase
+10c's antmaze-v1 run and phase 13's antmaze-v2 run, probe_energy,
+run_status and archive_run, the weights bundle round-tripped, and the
+rest of the model zoo on the card against the CPU); last the profiler
+windows. It prints one line per phase and its wall
 seconds, JSON lines `{"train": {...}}`, `{"loop": {...}}`,
-`{"envs": {...}}`, `{"baselines": {...}}` and `{"kernels": [...]}`, the
+`{"envs": {...}}`, `{"baselines": {...}}`, `{"tools": {...}}` and
+`{"kernels": [...]}`, the
 card's name and power limit as nvidia-smi gives them, and last
 `{"ok": true, "device": {...}}`. It exits non-zero, printing
 no result, when there is no CUDA card, when the port cannot be imported, or
@@ -48,12 +54,15 @@ when any phase fails. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -126,6 +135,11 @@ CARD_CPU_TOL = {"critic rows (max)": 1e-4, "critic targets (max)": 1e-4,
                 "actor (max)": 1e-4, "target actions (max)": 0.06,
                 "target actions (mean over the moved)": 1e-4,
                 "logs (max relative)": 1e-3}
+# the rest of the model zoo on the card against the CPU from the same
+# weights and draws (phase 15): float32 GEMMs of up to 1024 terms summed in
+# another order (TF32 off), through at most a K = 5 denoise; relative to
+# the larger of 1 and the output's largest magnitude
+ZOO_TOL = 1e-4
 # one H100 SXM (NVIDIA's data sheet): float32 outside the tensor cores, HBM
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
@@ -1083,16 +1097,14 @@ def recluster_phase(smi: str):
     return out, launches
 
 
-def loop_phase(smi: str):
+def loop_phase(smi: str, keep: Path):
     """10c: `ddiffpg_tpu_torch.train.main` with the stock config on
     antmaze-v1 at TRAIN_ENVS envs: warm-up, the initial recluster, four
     train iterations with an eval and a recluster every two, a light
     checkpoint at the second eval, the final full checkpoint. Checks the
     substep kernel's launches (once an env step, eval included) and that
-    the final checkpoint loads back equal tensor by tensor. Returns the
-    record."""
-    import tempfile
-
+    the final checkpoint loads back equal tensor by tensor. The run's
+    directory moves to `keep` (phase 15 reads it). Returns the record."""
     from ddiffpg_tpu_torch import train
     from ddiffpg_tpu_torch.utils import checkpoint as ckpt
 
@@ -1156,6 +1168,7 @@ def loop_phase(smi: str):
             f"{meta['num_groups']}")
         if bad or set(got) != set(want_t):
             raise RuntimeError(f"the reload differs: {bad[:5]}")
+        shutil.move(str(run), str(keep))
     return {"wall_s": wall, "times": times, "checkpoints": names,
             "substep_launches": launches, "peak_memory_bytes": peak}
 
@@ -1503,13 +1516,13 @@ def panda_ee_phase(smi: str, cfg: Config):
     return rec, launches, split, dtw_n
 
 
-def entry_point_run(name: str, smi: str, phase: str, *extra):
+def entry_point_run(name: str, smi: str, phase: str, *extra,
+                    keep: Path | None = None):
     """`train.main` on `name` with the stock config (and `extra`
     overrides) at TRAIN_ENVS envs, cut to warm-up + 4 iterations with an
     eval every two: its metrics.jsonl must hold an eval/success_goal{g}
-    key for each of the env's goals. Returns the record."""
-    import tempfile
-
+    key for each of the env's goals. The run's directory moves to `keep`
+    when given. Returns the record."""
     from ddiffpg_tpu_torch import train
 
     cfg = stock_config(name)
@@ -1525,6 +1538,8 @@ def entry_point_run(name: str, smi: str, phase: str, *extra):
         recs = [json.loads(x) for x in (Path(tmp) / "smoke" /
                                         "metrics.jsonl").read_text()
                 .splitlines()]
+        if keep is not None:
+            shutil.move(str(Path(tmp) / "smoke"), str(keep))
     evals = [r for r in recs if "eval/return" in r]
     keys = sorted({k for r in evals for k in r
                    if k.startswith("eval/success_goal")})
@@ -1540,11 +1555,11 @@ def entry_point_run(name: str, smi: str, phase: str, *extra):
             "goal_keys": keys}
 
 
-def pointmaze_phase(smi: str, cfg: Config):
+def pointmaze_phase(smi: str, cfg: Config, keep_v2: Path):
     """13: a collect of pointmaze-v1 at 4096 envs (plain PyTorch, no
-    kernel), then the entry point on antmaze-v2 and on pointmaze-v2.
-    Returns (record, launches of the antmaze-v2 run's train and eval
-    kernels, split)."""
+    kernel), then the entry point on antmaze-v2 (its run directory moved
+    to `keep_v2`) and on pointmaze-v2. Returns (record, launches of the
+    antmaze-v2 run's train and eval kernels, split)."""
     env = make("pointmaze-v1", num_envs=NUM_ENVS, device="cuda", seed=0)
     gen = torch.Generator(device="cuda").manual_seed(0)
     actor = Actor(env, cfg, gen)
@@ -1577,7 +1592,7 @@ def pointmaze_phase(smi: str, cfg: Config):
     train.make_envs = recording_make_envs
     try:
         rec["main_antmaze_v2"] = entry_point_run("antmaze-v2", smi,
-                                                 "13 pointmaze")
+                                                 "13 pointmaze", keep=keep_v2)
         # no preset names pointmaze-v2: its 7-row maze needs a density
         # grid resolution that 7 divides (the presets' 357), in both
         # packages (the stock 255 raises)
@@ -1891,6 +1906,216 @@ def baselines_profile(rec: dict, held: dict, smi: str):
         rec[algo]["device_activities_per_iter"] = dev[2]
 
 
+# ------------------------------------------------------------ 15. the tools
+def zoo_card_vs_cpu(device="cuda") -> dict:
+    """The rest of the model zoo (and `ema_update`) on the card against the
+    CPU, from one set of weights drawn from a seed and the same inputs and
+    draws at the train batch: each output's largest difference relative to
+    the larger of 1 and its largest magnitude, which must stay within
+    ZOO_TOL."""
+    from ddiffpg_tpu_torch.models import baseline_diffusion as bd
+    from ddiffpg_tpu_torch.models import diffusion as dm
+    from ddiffpg_tpu_torch.models import mlp
+    from ddiffpg_tpu_torch.utils.ema import ema_update
+
+    B, D, A, K, NA = TRAIN_ENVS, 29, 8, 5, 8
+    M = min(64, B)          # the EBM's logprob and entropy rows
+    g = torch.Generator().manual_seed(0)
+    randn = lambda *shape: torch.randn(shape, generator=g)  # noqa: E731
+    x = {"obs": randn(B, D), "act": torch.rand((B, A), generator=g) * 2 - 1,
+         "t": torch.randint(0, K, (B,), generator=g).float(),
+         "noise": randn(B, A), "buf": randn(64, A).clamp(-1, 1),
+         "logz": randn(M), "x_init": randn(M * NA, A),
+         "steps": randn(K, M * NA, A),
+         "idx": torch.randint(1, K + 1, (B,), generator=g)}
+    ebm = dm.EBMDiffusionPolicy(A, D, K, device="cpu", generator=g)
+    cases = {
+        "DiagGaussianMLPPolicy": (
+            mlp.DiagGaussianMLPPolicy(D, A, generator=g),
+            lambda m, i: m.sample(*m(i["obs"]), noise=i["noise"])),
+        "DistributionalEnsembleQ": (
+            mlp.DistributionalEnsembleQ(D, A, generator=g),
+            lambda m, i: torch.cat([m(i["obs"], i["act"]).flatten(),
+                                    m.q_mean(i["obs"], i["act"])])),
+        "MLPCritic": (mlp.MLPCritic(D, generator=g),
+                      lambda m, i: m(i["obs"])),
+        "DynamicModel": (
+            mlp.DynamicModel(D, A, generator=g),
+            lambda m, i: torch.cat([
+                m(i["obs"], i["act"]).flatten(),
+                m.disagreement_reward(i["obs"], i["act"])])),
+        "MLPResNet": (dm.MLPResNet(D, A, generator=g),
+                      lambda m, i: m(i["obs"])),
+        "EBMDiffusionPolicy.score": (
+            ebm, lambda m, i: m(i["act"], i["t"], i["obs"]).detach()),
+        "EBMDiffusionPolicy.logprob": (
+            ebm, lambda m, i: m.logprob(i["act"][:M], i["t"][:M],
+                                        i["obs"][:M], i["buf"])),
+        "EBMDiffusionPolicy.entropy": (
+            ebm, lambda m, i: m.entropy(i["obs"][:M], i["logz"], NA,
+                                        x_init=i["x_init"],
+                                        noise=i["steps"])),
+        "Consistency": (
+            bd.Consistency(A, D, K, device="cpu", generator=g),
+            lambda m, i: torch.cat([
+                m.sample(i["obs"], noise=i["noise"]).flatten(),
+                m.loss(i["obs"], i["act"], idx=i["idx"],
+                       noise=i["noise"]).reshape(1)])),
+        "ema_update": (
+            mlp.MLPCritic(D, generator=g),
+            lambda m, i: torch.cat([
+                p.flatten() for p in ema_update(
+                    list(m.parameters()),
+                    [p + 1.0 for p in m.parameters()], 0.9)])),
+    }
+    card = {k: v.to(device) for k, v in x.items()}
+    errs = {}
+    for name, (module, fn) in cases.items():
+        want = fn(copy.deepcopy(module), x).detach()
+        got = fn(copy.deepcopy(module).to(device), card).detach().cpu()
+        errs[name] = float((got - want).abs().max()
+                           / max(1.0, float(want.abs().max())))
+        log("15 tools", f"{name} card vs CPU ({tuple(want.shape)} values): "
+            f"{errs[name]:.2e} relative (bound {ZOO_TOL:g})")
+        if not errs[name] <= ZOO_TOL:
+            raise RuntimeError(f"{name}: the card differs from the CPU by "
+                               f"{errs[name]:.3g}")
+    return errs
+
+
+def tools_phase(smi: str, runs: dict, scratch: Path):
+    """15: each checkpoint tool on the card at its own defaults (num_envs
+    is the runs' own) on the final checkpoints of phase 10c's antmaze-v1
+    run (eval_ckpt, eval_goals, eval_modes) and phase 13's antmaze-v2 run
+    (eval_goals for its two per-goal rates, and trace_goals and
+    probe_qfield, whose default env it is), probe_energy, run_status and
+    archive_run on both runs (its REPO pointed at `scratch`, so nothing
+    is written into the checkout); the stock agent's weights bundle
+    round-tripped bit for bit; the zoo on the card against the CPU. The
+    substep kernels the tools build count their launches from 0. Returns
+    (record, antmaze-v1 launches, antmaze-v2 launches)."""
+    import contextlib
+    import importlib.util
+    import io
+
+    from ddiffpg_tpu_torch.tools import (archive_run, common, eval_ckpt,
+                                         eval_goals, eval_modes,
+                                         probe_energy, probe_qfield,
+                                         run_status, trace_goals)
+    from ddiffpg_tpu_torch.utils import checkpoint as ckpt
+
+    made, init = [], SubstepKernel.__init__
+
+    def recording_init(self, *a, **k):
+        init(self, *a, **k)
+        made.append(self)
+
+    launches = {"antmaze-v1": 0, "antmaze-v2": 0}
+    rec = {}
+
+    def run(label, env, fn, *args):
+        made.clear()
+        t0 = time.time()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            result = fn(list(args))
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        n = sum(k.launches for k in made)
+        launches[env] += n
+        for line in out.getvalue().splitlines():
+            log("15 tools", f"{label}: {line}")
+        log("15 tools", f"{label}: {secs:.1f} s, {n} substep launches "
+            f"[{smi}]")
+        rec[label] = {"s": secs, "substep_launches": n, "out": result}
+
+    v1 = str(runs["antmaze-v1"] / "ckpt_final.pt")
+    v2 = str(runs["antmaze-v2"] / "ckpt_final.pt")
+    n_envs = f"num_envs={TRAIN_ENVS}"
+    SubstepKernel.__init__ = recording_init
+    try:
+        run("eval_ckpt v1", "antmaze-v1", eval_ckpt.main, v1, n_envs)
+        run("eval_goals v1", "antmaze-v1", eval_goals.main, v1,
+            "env=antmaze-v1", n_envs)
+        run("eval_modes v1", "antmaze-v1", eval_modes.main, v1, n_envs)
+        run("probe_energy", "antmaze-v1", probe_energy.main)
+        run("eval_goals v2", "antmaze-v2", eval_goals.main, v2,
+            "env=antmaze-v2", n_envs)
+        run("trace_goals v2", "antmaze-v2", trace_goals.main, v2, n_envs)
+        run("probe_qfield v2", "antmaze-v2", probe_qfield.main, v2, n_envs)
+    finally:
+        SubstepKernel.__init__ = init
+    goal_keys = sorted(k for k in rec["eval_goals v2"]["out"]
+                       if k.startswith("eval/success_goal"))
+    log("15 tools", f"eval_goals v2 per-goal rates "
+        f"{ {k: rec['eval_goals v2']['out'][k] for k in goal_keys} }")
+    if goal_keys != ["eval/success_goal1", "eval/success_goal2"]:
+        raise RuntimeError(f"eval_goals on antmaze-v2: keys {goal_keys}")
+
+    t0 = time.time()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        for d in runs.values():
+            run_status.status(d)
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log("15 tools", f"run_status: {line}")
+    rec["run_status"] = {"s": time.time() - t0, "lines": lines}
+    t0 = time.time()
+    repo, archive_run.REPO = archive_run.REPO, scratch
+    try:
+        dst = [archive_run.archive(d) for d in runs.values()]
+    finally:
+        archive_run.REPO = repo
+    files = {d.name: sorted(p.name for p in d.iterdir()) for d in dst}
+    log("15 tools", f"archive_run into {scratch}: {files}")
+    if any(not d.is_relative_to(scratch) for d in dst) or \
+            any("metrics.jsonl.gz" not in f for f in files.values()):
+        raise RuntimeError(f"archive_run wrote {dst}")
+    rec["archive_run"] = {"s": time.time() - t0, "files": files}
+
+    # the stock agent's weights bundle, bit for bit
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, agent, ts, meta = common.load(v1, {
+            "env": "antmaze-v1", "device": "auto", "num_envs": TRAIN_ENVS})
+    G = int(meta["num_groups"])
+    path = scratch / "model.pt"
+    torch.cuda.synchronize()
+    t0 = time.time()
+    nbytes = ckpt.save_model(path, ts.actor, ckpt.critic_rows(ts.critics, G),
+                             rms=ts.obs_rms, embeddings=ts.embeddings,
+                             coverage=ts.density_grid)
+    save_s = time.time() - t0
+    t0 = time.time()
+    blob = ckpt.load_model(path)
+    load_s = time.time() - t0
+    want = {f"actor.{k}": v for k, v in ts.actor.state_dict().items()}
+    want |= {f"critics.{g}.{k}": v for g, row in enumerate(
+        ckpt.critic_rows(ts.critics, G)) for k, v in row.items()}
+    want |= {"embeddings": ts.embeddings, "coverage": ts.density_grid}
+    got = {f"actor.{k}": v for k, v in blob["actor"].items()}
+    got |= {f"critics.{g}.{k}": v for g, row in enumerate(blob["critics"])
+            for k, v in row.items()}
+    got |= {"embeddings": blob["embeddings"], "coverage": blob["coverage"]}
+    bad = [k for k in want if k not in got
+           or not torch.equal(got[k], want[k].cpu())]
+    log("15 tools", f"weights bundle of the stock agent ({G} groups): "
+        f"{nbytes} bytes, saved in {save_s:.3f} s, loaded in {load_s:.3f} "
+        f"s, {len(want)} tensors, {len(bad)} differ [{smi}]")
+    if bad or set(got) != set(want):
+        raise RuntimeError(f"the bundle's round trip differs: {bad[:5]}")
+    rec["bundle"] = {"bytes": nbytes, "save_s": save_s, "load_s": load_s,
+                     "tensors": len(want)}
+    rec["zoo_card_vs_cpu"] = zoo_card_vs_cpu()
+    if importlib.util.find_spec("matplotlib") is None:
+        rec["plots"] = "skipped: matplotlib is not installed"
+    else:
+        rec["plots"] = {name: sorted(p.name for p in d.glob("*.png"))
+                        for name, d in runs.items()}
+    log("15 tools", f"maze plots of the kept runs: {rec['plots']}")
+    return rec, launches["antmaze-v1"], launches["antmaze-v2"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -2129,9 +2354,14 @@ def main() -> int:
     stamp("phase 9 (train)")
 
     # --------------------------------------- 10. recluster, eval, the loop
+    # the final checkpoints of phases 10c and 13, kept for phase 15 (the
+    # directory goes at the end, or at exit when a phase fails)
+    kept = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    runs = {name: Path(kept.name) / name
+            for name in ("antmaze-v1", "antmaze-v2")}
     dtw_rec = dtw_phase(smi)
     recluster, dtw_launches = recluster_phase(smi)
-    loop = loop_phase(smi)
+    loop = loop_phase(smi, runs["antmaze-v1"])
     loop_launches = sum(loop["substep_launches"].values())
     stamp("phase 10 (the loop)")
 
@@ -2145,13 +2375,23 @@ def main() -> int:
     stamp("phase 12 (Panda ee)")
 
     # --------------------------------- 13. pointmaze and the entry point
-    points, v2_main_launches, point_split = pointmaze_phase(smi, cfg)
+    points, v2_main_launches, point_split = pointmaze_phase(
+        smi, cfg, runs["antmaze-v2"])
     maze_launches["antmaze-v2"] += v2_main_launches
     stamp("phase 13 (pointmaze, entry points)")
 
     # ----------------------------------------------------- 14. the baselines
     baselines, baseline_launches, held = baselines_phase(smi)
     stamp("phase 14 (baselines)")
+
+    # ----------------------------------------------------- 15. the tools
+    scratch = Path(kept.name) / "scratch"
+    scratch.mkdir()
+    tools, tools_v1_launches, tools_v2_launches = tools_phase(smi, runs,
+                                                              scratch)
+    maze_launches["antmaze-v2"] += tools_v2_launches
+    kept.cleanup()
+    stamp("phase 15 (the tools)")
 
     # device time of the new collect paths and the baselines' iterations,
     # after every timed phase
@@ -2161,18 +2401,19 @@ def main() -> int:
     baselines_profile(baselines, held, smi)
     stamp("profiler windows")
 
-    # ---------------------------------------------------------- 15. result
+    # ---------------------------------------------------------- the result
     print(json.dumps({"train": train}))
     print(json.dumps({"loop": {"dtw": dtw_rec, "recluster": recluster,
                                "run": loop, "card": smi}}))
     print(json.dumps({"envs": {"mazes": mazes, "panda_ee": ee,
                                "pointmaze": points, "card": smi}}))
     print(json.dumps({"baselines": {**baselines, "card": smi}}))
+    print(json.dumps({"tools": {**tools, "card": smi}}))
     print(json.dumps({"kernels": [
         kernel_entry("substep_ant",
                      ant_launches + train_launches + loop_launches
-                     + baseline_launches, ant_err, ant_ms, ant_plain_ms,
-                     ant_bound),
+                     + baseline_launches + tools_v1_launches, ant_err,
+                     ant_ms, ant_plain_ms, ant_bound),
         kernel_entry("substep_panda_drawermulti",
                      drawer_launches + ee_launches["drawer"],
                      panda_err["DrawerMulti"], panda_ms["DrawerMulti"],

@@ -4,7 +4,8 @@ Counterpart of `ddiffpg_tpu/models/baseline_diffusion.py`: `BaselineMLP`
 (:21, the eps model: an 8-frequency sinusoid of t, then three Mish layers
 of 256 on [x, t emb, state]) and `Diffusion` (:39, a DDPM actor with a
 selectable beta schedule, the predicted x0 clipped, and l2, l1 or huber
-losses). Layers are initialised with flax `Dense`'s law, and
+losses), and `Consistency` (:86, a one-step map from noise to action,
+which no agent uses). Layers are initialised with flax `Dense`'s law, and
 `utils/convert.py` loads the JAX package's weights exactly.
 """
 
@@ -19,7 +20,7 @@ from torch import nn
 from ddiffpg_tpu_torch.models.diffusion import lecun_normal_
 from ddiffpg_tpu_torch.ops import ddpm
 
-__all__ = ["BaselineMLP", "Diffusion"]
+__all__ = ["BaselineMLP", "Diffusion", "Consistency"]
 
 
 class BaselineMLP(nn.Module):
@@ -125,3 +126,74 @@ class Diffusion(nn.Module):
         else:
             per = (err ** 2).mean(-1)
         return (per * weights).mean()
+
+
+class Consistency(nn.Module):
+    """Consistency policy: one step from noise to action through the
+    boundary-respecting skip parameterisation c_skip(t) x + c_out(t) F(x).
+    The noise levels `ts` [n_timesteps + 1] (a non-persistent buffer) are
+    computed in float32, as the JAX package does."""
+
+    def __init__(self, action_dim: int, state_dim: int,
+                 n_timesteps: int = 5, max_action: float = 1.0,
+                 eps: float = 0.002, sigma_data: float = 0.5,
+                 sigma_max: float = 80.0, rho: float = 7.0,
+                 device: str | torch.device = "cuda",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.action_dim = action_dim
+        self.n_timesteps = n_timesteps
+        self.max_action = max_action
+        self.eps, self.sigma_data = eps, sigma_data
+        self.model = BaselineMLP(action_dim, state_dim, generator=generator)
+        i = torch.arange(n_timesteps + 1, dtype=torch.float32,
+                         device=device)
+        lo, hi = eps ** (1 / rho), sigma_max ** (1 / rho)
+        self.register_buffer("ts", (lo + i / n_timesteps * (hi - lo)) ** rho,
+                             persistent=False)
+        self.to(device)
+
+    def _f(self, x, t, state):
+        sd = self.sigma_data
+        c_skip = sd ** 2 / ((t - self.eps) ** 2 + sd ** 2)
+        c_out = sd * (t - self.eps) / torch.sqrt(sd ** 2 + t ** 2)
+        out = self.model(x, t, state)
+        return c_skip[:, None] * x + c_out[:, None] * out
+
+    def forward(self, state, *, generator: torch.Generator | None = None,
+                noise: torch.Tensor | None = None):
+        return self.sample(state, generator=generator, noise=noise)
+
+    def sample(self, state: torch.Tensor, *,
+               generator: torch.Generator | None = None,
+               noise: torch.Tensor | None = None) -> torch.Tensor:
+        """Actions [B, A] for state [B, S], from the noise at the largest
+        level; `noise` [B, A] is the standard normal draw (from
+        `generator` when not given)."""
+        B = state.shape[0]
+        if noise is None:
+            noise = torch.randn((B, self.action_dim), generator=generator,
+                                device=state.device, dtype=state.dtype)
+        t_max = self.ts[-1].expand(B)
+        a = self._f(noise * self.ts[-1], t_max, state)
+        return torch.clamp(a, -self.max_action, self.max_action)
+
+    def loss(self, state: torch.Tensor, action: torch.Tensor, *,
+             generator: torch.Generator | None = None,
+             idx: torch.Tensor | None = None,
+             noise: torch.Tensor | None = None) -> torch.Tensor:
+        """Consistency loss of `action` [B, A]: the map at level idx
+        against the detached map at idx - 1, on one noise. `idx` [B] (int
+        in [1, n_timesteps]) and `noise` [B, A] are drawn from `generator`
+        when not given."""
+        B = action.shape[0]
+        if idx is None:
+            idx = torch.randint(1, self.n_timesteps + 1, (B,),
+                                generator=generator, device=action.device)
+        if noise is None:
+            noise = torch.randn(action.shape, generator=generator,
+                                device=action.device, dtype=action.dtype)
+        t1, t0 = self.ts[idx], self.ts[idx - 1]
+        f1 = self._f(action + t1[:, None] * noise, t1, state)
+        f0 = self._f(action + t0[:, None] * noise, t0, state).detach()
+        return torch.mean((f1 - f0) ** 2)

@@ -8,6 +8,10 @@ Layers are initialised with flax `Dense`'s law (lecun-normal kernel, zero
 bias), so a freshly made policy has the JAX package's weight statistics;
 `utils/convert.py` loads the JAX package's weights exactly. `loss` is the
 DDPM epsilon-prediction loss that distils the actor in the update pass.
+
+Beside it, as in the JAX package and used by no agent: the residual trunk
+`MLPResNet` (:67) and `EBMDiffusionPolicy` (:129), whose score is the
+gradient of an energy.
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ from torch import nn
 
 from ddiffpg_tpu_torch.ops import ddpm
 
-__all__ = ["SinusoidalPosEmb", "DiffusionNet", "DiffusionPolicy"]
+__all__ = ["SinusoidalPosEmb", "DiffusionNet", "MLPResNet", "DiffusionPolicy",
+           "EBMDiffusionPolicy"]
 
 # std of a unit normal truncated to [-2, 2] (flax's truncated_normal init)
 _TRUNC_STD = 0.87962566103423978
@@ -77,6 +82,57 @@ class DiffusionNet(nn.Module):
         for layer in d[2:5]:
             h = F.mish(layer(h))
         return d[5](h)
+
+
+class MLPResNetBlock(nn.Module):
+    """x + Dense(Mish(Dense_4f(LayerNorm(dropout(x))))); flax's LayerNorm
+    epsilon (1e-6). Dropout acts only when `deterministic` is false, as
+    in flax (`MLPResNet` never turns it on)."""
+
+    def __init__(self, features: int, use_layer_norm: bool = True,
+                 dropout_rate: float = 0.0,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+        self.norm = nn.LayerNorm(features, eps=1e-6) if use_layer_norm \
+            else None
+        self.dense = nn.ModuleList([nn.Linear(features, features * 4),
+                                    nn.Linear(features * 4, features)])
+        for layer in self.dense:
+            lecun_normal_(layer.weight, generator)
+            nn.init.zeros_(layer.bias)
+
+    def forward(self, x, deterministic: bool = True):
+        residual = x
+        if self.dropout_rate > 0.0:
+            x = F.dropout(x, self.dropout_rate, training=not deterministic)
+        if self.norm is not None:
+            x = self.norm(x)
+        return residual + self.dense[1](F.mish(self.dense[0](x)))
+
+
+class MLPResNet(nn.Module):
+    """Residual trunk: Dense(hidden), `num_blocks` residual blocks, Mish,
+    Dense(out)."""
+
+    def __init__(self, in_dim: int, out_dim: int, num_blocks: int = 3,
+                 hidden_dim: int = 256,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.dense_in = nn.Linear(in_dim, hidden_dim)
+        self.blocks = nn.ModuleList(MLPResNetBlock(hidden_dim,
+                                                   generator=generator)
+                                    for _ in range(num_blocks))
+        self.dense_out = nn.Linear(hidden_dim, out_dim)
+        for layer in (self.dense_in, self.dense_out):
+            lecun_normal_(layer.weight, generator)
+            nn.init.zeros_(layer.bias)
+
+    def forward(self, x):
+        x = self.dense_in(x)
+        for block in self.blocks:
+            x = block(x)
+        return self.dense_out(F.mish(x))
 
 
 class DiffusionPolicy(nn.Module):
@@ -153,3 +209,49 @@ class DiffusionPolicy(nn.Module):
         noisy = ddpm.add_noise(self.tables, action, noise, t)
         eps = self.net(noisy, t.to(torch.float32), cond)
         return torch.mean((eps - noise) ** 2)
+
+
+class EBMDiffusionPolicy(DiffusionPolicy):
+    """Energy-parameterised variant: E(x) = ||net(x, t, cond) - x||^2, and
+    `forward` (the score) is dE/dx. `act` and `loss` are the parent's,
+    on the net itself, as in the JAX package; `logprob` and `entropy`
+    follow `ddiffpg_tpu/models/diffusion.py:143-162`."""
+
+    def neg_logp_unnorm(self, x, t, cond):
+        return ((self.net(x, t, cond) - x) ** 2).sum(-1)
+
+    def forward(self, x, t, cond):
+        """dE/dx [B, A], with its graph kept (`create_graph`), so that a
+        loss on the score trains the net through it."""
+        with torch.enable_grad():
+            if not x.requires_grad:
+                x = x.detach().requires_grad_(True)
+            e = self.neg_logp_unnorm(x, t, cond).sum()
+            return torch.autograd.grad(e, x, create_graph=True)[0]
+
+    def logprob(self, x, t, cond, action_buf):
+        """log p(x | cond) [B1] against the partition function over the
+        sample buffer `action_buf` [B2, A] at t = 0."""
+        B1, B2 = cond.shape[0], action_buf.shape[0]
+        E = self.neg_logp_unnorm(x, t, cond)
+        a = action_buf.repeat(B1, 1)
+        c = cond.repeat_interleave(B2, dim=0)
+        t2 = torch.zeros((B1 * B2,), dtype=torch.float32, device=x.device)
+        Z = torch.exp(-self.neg_logp_unnorm(a, t2, c)).reshape(B1, B2).sum(-1)
+        return -E - torch.log(Z)
+
+    def entropy(self, cond, logZ, num_action: int = 50, *,
+                generator: torch.Generator | None = None,
+                x_init: torch.Tensor | None = None,
+                noise: torch.Tensor | None = None):
+        """Monte-Carlo entropy [B]: the mean energy at t = 0 of
+        `num_action` sampled actions per cond row, plus logZ. `x_init`
+        [B * num_action, A] and `noise` [K, B * num_action, A] are the
+        sampler's draws (from `generator` when not given)."""
+        B = cond.shape[0]
+        c = cond.repeat_interleave(num_action, dim=0)
+        a = self.act(c, generator=generator, x_init=x_init, noise=noise)
+        t = torch.zeros((B * num_action,), dtype=torch.float32,
+                        device=cond.device)
+        E = self.neg_logp_unnorm(a, t, c).reshape(B, num_action).mean(dim=1)
+        return E + logZ

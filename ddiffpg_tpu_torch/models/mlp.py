@@ -3,7 +3,9 @@
 Counterpart of `ddiffpg_tpu/models/mlp.py`: `MLPNet` (ELU, hidden 512,
 256, 128), the baselines' `TanhMLPPolicy` (:40), `TanhDiagGaussianMLPPolicy`
 (:67) and `DoubleQ` (:98), `DistributionalDoubleQ` (:114) and `RNDModel`
-(:194). Layers
+(:194), and the rest of the zoo, which no agent uses: `DiagGaussianMLPPolicy`
+(:50), `DistributionalEnsembleQ` (:138), `MLPCritic` (:162) and
+`DynamicModel` (:171). Layers
 are initialised with flax's laws (lecun-normal kernels for `Dense`,
 orthogonal(sqrt 2) for the RND nets, zero biases), so fresh modules have
 the JAX package's weight statistics; `utils/convert.py` loads its weights
@@ -29,6 +31,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ddiffpg_tpu_torch.models.diffusion import lecun_normal_
+
+__all__ = [
+    "MLPNet", "TanhMLPPolicy", "DiagGaussianMLPPolicy",
+    "TanhDiagGaussianMLPPolicy", "DoubleQ", "DistributionalDoubleQ",
+    "DistributionalEnsembleQ", "MLPCritic", "DynamicModel", "RNDModel",
+]
 
 DEFAULT_HIDDEN = (512, 256, 128)
 
@@ -77,6 +85,34 @@ class TanhMLPPolicy(nn.Module):
     def act(self, obs, *, generator=None, x_init=None, noise=None):
         """The action [B, A]; it draws nothing."""
         return self(obs)
+
+
+class DiagGaussianMLPPolicy(nn.Module):
+    """Gaussian policy with a state-independent `logstd` parameter [A]:
+    `forward` gives (mean, log_std broadcast to the mean's shape)."""
+
+    def __init__(self, obs_dim: int, action_dim: int,
+                 init_log_std: float = 0.0,
+                 hidden: Sequence[int] = DEFAULT_HIDDEN,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.net = MLPNet(obs_dim, action_dim, hidden, generator=generator)
+        self.logstd = nn.Parameter(torch.full((action_dim,),
+                                              float(init_log_std)))
+
+    def forward(self, obs):
+        mean = self.net(obs)
+        return mean, self.logstd.expand(mean.shape)
+
+    @staticmethod
+    def sample(mean, log_std, *, generator: torch.Generator | None = None,
+               noise: torch.Tensor | None = None):
+        """mean + exp(log_std) * noise; `noise` is the standard normal
+        draw (from `generator` when not given)."""
+        if noise is None:
+            noise = torch.randn(mean.shape, generator=generator,
+                                device=mean.device, dtype=mean.dtype)
+        return mean + torch.exp(log_std) * noise
 
 
 class TanhDiagGaussianMLPPolicy(nn.Module):
@@ -179,6 +215,66 @@ class DistributionalDoubleQ(nn.Module):
                 h = F.elu(h)
         q = torch.softmax(h.reshape(G, 2, b, -1), dim=-1)
         return q[:, 0], q[:, 1]
+
+
+class DistributionalEnsembleQ(nn.Module):
+    """`n_ensemble` C51 critics on [obs, action]: `forward` gives their
+    softmaxes [n, B, num_atoms], `q_mean` the mean over the ensemble of
+    each one's expected value on the atoms `z_atoms`."""
+
+    def __init__(self, obs_dim: int, action_dim: int, v_min: float = -10.0,
+                 v_max: float = 10.0, num_atoms: int = 51,
+                 n_ensemble: int = 3, hidden: Sequence[int] = DEFAULT_HIDDEN,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.heads = nn.ModuleList(
+            MLPNet(obs_dim + action_dim, num_atoms, hidden,
+                   generator=generator) for _ in range(n_ensemble))
+        self.register_buffer("z_atoms", torch.linspace(v_min, v_max,
+                                                       num_atoms),
+                             persistent=False)
+
+    def forward(self, obs, action):
+        x = torch.cat([obs, action], dim=-1)
+        return torch.stack([torch.softmax(h(x), dim=-1)
+                            for h in self.heads])
+
+    def q_mean(self, obs, action):
+        return (self(obs, action) * self.z_atoms).sum(-1).mean(0)
+
+
+class MLPCritic(nn.Module):
+    """State-value MLP: obs -> [B, 1]."""
+
+    def __init__(self, obs_dim: int, hidden: Sequence[int] = DEFAULT_HIDDEN,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.net = MLPNet(obs_dim, 1, hidden, generator=generator)
+
+    def forward(self, obs):
+        return self.net(obs)
+
+
+class DynamicModel(nn.Module):
+    """Ensemble of forward-dynamics MLPs on [obs, action]: `forward` gives
+    their predictions [n, B, obs_dim]; `disagreement_reward` [B] is the
+    variance over the ensemble (unbiased, as the JAX package's ddof=1),
+    averaged over the obs dimensions."""
+
+    def __init__(self, obs_dim: int, action_dim: int, n_ensemble: int = 3,
+                 hidden: Sequence[int] = DEFAULT_HIDDEN,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.heads = nn.ModuleList(
+            MLPNet(obs_dim + action_dim, obs_dim, hidden, generator=generator)
+            for _ in range(n_ensemble))
+
+    def forward(self, obs, action):
+        x = torch.cat([obs, action], dim=-1)
+        return torch.stack([h(x) for h in self.heads])
+
+    def disagreement_reward(self, obs, action):
+        return self(obs, action).var(dim=0, correction=1).mean(dim=-1)
 
 
 def q_min(critic: DistributionalDoubleQ, z: torch.Tensor, obs, action):

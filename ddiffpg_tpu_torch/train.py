@@ -23,6 +23,14 @@ the JAX package's metrics it logs the loop's own costs under `time/`
 recluster (and its DTW share), eval rollout and checkpoint seconds,
 checkpoint bytes, and the seconds per train iteration between log points.
 `resume=<path>` restores a full or light checkpoint.
+
+On the mazes every eval also draws the eval's xy over the maze
+(`eval_map_<step>.png` in the run directory), and for DDiffPG every
+`eval_freq * 5` iterations the last recluster's success clusters, its
+dendrogram, the failures by their assigned mode and the exploration
+heatmap (`cluster`, `hierarchy`, `unsuccess_cluster`, `exploration_map`),
+as the root `train.py` does. The plots need matplotlib: without it the
+loop says once that it skips them, and draws none.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from ddiffpg_tpu_torch import config as C
 from ddiffpg_tpu_torch.agents import make_agent
 from ddiffpg_tpu_torch.agents.evaluation import eval_rollout
 from ddiffpg_tpu_torch.envs import make
+from ddiffpg_tpu_torch.physics import maze
 from ddiffpg_tpu_torch.utils import checkpoint as ckpt
 from ddiffpg_tpu_torch.utils.logger import Logger
 
@@ -70,15 +79,20 @@ def resolve_device(name: str) -> torch.device:
                      "card) or 'cpu'")
 
 
+def env_kwargs(cfg) -> dict:
+    """The config's env options that `envs.make` takes for its env name."""
+    if "antmaze" in cfg.env.name:
+        return dict(reward_type=cfg.env.reward_type,
+                    random_init=cfg.env.random_init)
+    if cfg.env.name.startswith("Panda"):
+        return dict(control_type=cfg.env.control_type)
+    return {}
+
+
 def make_envs(cfg, device):
     """The train env (cfg.num_envs) and the eval env (cfg.eval_num_envs),
     their reset draws seeded from cfg.seed and cfg.seed + 1."""
-    kw = {}
-    if "antmaze" in cfg.env.name:
-        kw = dict(reward_type=cfg.env.reward_type,
-                  random_init=cfg.env.random_init)
-    elif cfg.env.name.startswith("Panda"):
-        kw = dict(control_type=cfg.env.control_type)
+    kw = env_kwargs(cfg)
     env = make(cfg.env.name, num_envs=cfg.num_envs, device=device,
                seed=cfg.seed, **kw)
     eval_env = make(cfg.env.name, num_envs=cfg.eval_num_envs, device=device,
@@ -118,6 +132,45 @@ def signal_requests(logger):
     finally:
         for s, h in previous.items():
             signal.signal(s, h)
+
+
+def plots_available(logger) -> bool:
+    """Whether matplotlib imports; says so on the console when it does
+    not."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as e:
+        logger.console(f"maze plots skipped: matplotlib cannot be imported "
+                       f"({e})")
+        return False
+    return True
+
+
+def plot_eval(cfg, agent, ts, xy, iter_t: int, step: int, logger):
+    """The maze plots of one eval (root train.py's plot block): the eval's
+    xy [T, E, 2] over the maze, and at the `eval_freq * 5` cadence
+    DDiffPG's last recluster (clusters, dendrogram, failures by mode) and
+    the exploration heatmap."""
+    from ddiffpg_tpu_torch.utils import plotting
+
+    mm = maze.MAZES[cfg.env.name.replace("pointmaze", "antmaze")]
+    img = plotting.plot_traj(mm, xy.cpu().numpy().reshape(-1, 2))
+    logger.log_image("eval/map", img, step)
+    if (cfg.algo.name == "DDiffPG" and iter_t % (cfg.eval_freq * 5) == 0
+            and agent.last_plot is not None):
+        trajs, clusters, Z = agent.last_plot
+        if trajs:
+            logger.log_image("cluster",
+                             plotting.plot_cluster(mm, trajs, clusters), step)
+        if Z is not None and len(Z):
+            logger.log_image("hierarchy", plotting.plot_hierarchy(Z), step)
+        if agent.last_unsuccess_plot is not None:
+            utrajs, uclusters = agent.last_unsuccess_plot
+            logger.log_image("unsuccess_cluster",
+                             plotting.plot_cluster(mm, utrajs, uclusters),
+                             step)
+        logger.log_image("exploration_map", plotting.plot_heatmap(
+            ts.density_grid.cpu().numpy()), step)
 
 
 def main(argv=None):
@@ -226,6 +279,7 @@ def _loop(cfg, agent, eval_env, eval_gen, generators, requests, resume,
             recluster(int(ts.global_step))
             logger.console(f"initial clusters: {agent.num_clusters}")
 
+    plots = "maze" in cfg.env.name and plots_available(logger)
     global_steps = int(ts.global_step)
     iter_t = 0
     steps_per_iter = cfg.algo.horizon_len * cfg.num_envs
@@ -260,7 +314,7 @@ def _loop(cfg, agent, eval_env, eval_gen, generators, requests, resume,
                             for g, n in gc.items()}
                            | {"replay/num_modes": float(agent.num_clusters)},
                            global_steps)
-            (metrics, _), secs = timed(
+            (metrics, xy), secs = timed(
                 lambda: eval_rollout(eval_env, eval_actor))
             logger.log(metrics | {"time/eval_s": secs}, global_steps)
             logger.console(
@@ -268,6 +322,12 @@ def _loop(cfg, agent, eval_env, eval_gen, generators, requests, resume,
                 f"eval return {metrics['eval/return']:.2f} "
                 f"success {metrics['eval/success_rate']:.2f} "
                 f"len {metrics['eval/episode_length']:.0f}")
+            if plots:
+                try:
+                    plot_eval(cfg, agent, ts, xy, iter_t, global_steps,
+                              logger)
+                except Exception as e:   # a plot never stops the run
+                    logger.console(f"plotting failed: {e!r}")
             if iter_t % (cfg.eval_freq * cfg.ckpt_freq_mult) == 0 and iter_t:
                 # a light checkpoint leaves the replay out
                 skip = () if cfg.ckpt_full else ("replay",)

@@ -1,1 +1,2 @@
-"""Helpers of the port: maze coverage, JAX-package conversion."""
+"""Helpers of the port: logging, checkpoints and the weights bundle, maze
+coverage and plots, EMA, JAX-package conversion."""

@@ -15,6 +15,11 @@ checkpoint, whose load keeps the example state's fresh replay. The write
 is atomic (a temporary file, then a rename). The JAX package's pickles
 hold JAX treedefs and are not read here; `utils/convert.py` carries a JAX
 state across.
+
+`save_model` / `load_model` are the weights-only bundle of
+`ddiffpg_tpu/utils/checkpoint.py:save_model` (the reference's
+`model.pth`): the actor, the per-mode critic list, the obs running stats,
+the mode embeddings and the coverage grid, as CPU tensors.
 """
 
 from __future__ import annotations
@@ -94,3 +99,54 @@ def load(path, example_state):
                              f"{tuple(dst.shape)}")
         dst.copy_(src)
     return example_state, blob["host_meta"]
+
+
+def _cpu(x):
+    """Tensors, modules (their state dicts), NamedTuples (as dicts of their
+    fields), dicts and lists -> the same nesting of detached CPU tensor
+    copies."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().clone()
+    if isinstance(x, torch.nn.Module):
+        return _cpu(x.state_dict())
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return {k: _cpu(getattr(x, k)) for k in x._fields}
+    if isinstance(x, dict):
+        return {k: _cpu(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_cpu(v) for v in x]
+    raise TypeError(f"cannot bundle {type(x).__name__}")
+
+
+def critic_rows(critics, num_groups: int) -> list:
+    """The per-mode critic list of a stacked `DistributionalDoubleQ`: for
+    each group g < num_groups, its state dict at row g (`weight.i`
+    [2, in, out], `bias.i` [2, out]; heads q1, q2)."""
+    return [{k: v[g] for k, v in critics.state_dict().items()}
+            for g in range(num_groups)]
+
+
+def save_model(path, actor, critics: list, rms=None, embeddings=None,
+               coverage=None) -> int:
+    """Write the weights-only bundle: `actor` (a module or a state dict),
+    `critics` (a list of per-mode modules or state dicts, `critic_rows`),
+    `rms` (a RunningMeanStd, kept as a dict of its fields), `embeddings`
+    and `coverage` (tensors), each optional one as None when not given.
+    The write is atomic; returns the file's size in bytes."""
+    blob = {"actor": _cpu(actor), "critics": _cpu(list(critics)),
+            "rms": _cpu(rms), "embeddings": _cpu(embeddings),
+            "coverage": _cpu(coverage)}
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(".tmp")
+    torch.save(blob, tmp)
+    tmp.replace(path)
+    return path.stat().st_size
+
+
+def load_model(path) -> dict:
+    """The bundle `save_model` wrote, its tensors on the CPU (loaded with
+    `weights_only`, so a bundle runs no code)."""
+    return torch.load(path, map_location="cpu", weights_only=True)

@@ -95,6 +95,69 @@ def baseline_diffusion_arrays(flax_params: Mapping) -> list:
     return dense_arrays(_params(flax_params)["model"])
 
 
+def diag_gaussian_arrays(flax_params: Mapping) -> list:
+    """A `DiagGaussianMLPPolicy` tree -> `logstd`, then its MLP's arrays
+    (`parameters()` gives a module's own parameter before its
+    submodules')."""
+    p = _params(flax_params)
+    return [np.asarray(p["logstd"], np.float32)] + dense_arrays(p["MLPNet_0"])
+
+
+def ensemble_arrays(flax_params: Mapping, prefix: str) -> list:
+    """An ensemble of MLPs named `<prefix>0`, `<prefix>1`, ... (q for
+    `DistributionalEnsembleQ`, dyn for `DynamicModel`) -> their arrays,
+    member after member."""
+    p = _params(flax_params)
+    return [a for i in range(len(p)) for a in dense_arrays(p[f"{prefix}{i}"])]
+
+
+def mlp_resnet_arrays(flax_params: Mapping) -> list:
+    """An `MLPResNet` tree -> arrays in the order of the port's
+    `MLPResNet.parameters()`: the input layer, each block's LayerNorm
+    (scale, bias) and two layers, the output layer."""
+    p = _params(flax_params)
+    blocks = sorted((k for k in p if k.startswith("MLPResNetBlock_")),
+                    key=lambda k: int(k.rsplit("_", 1)[1]))
+    out = dense_arrays({"Dense_0": p["Dense_0"]})
+    for b in blocks:
+        ln = p[b]["LayerNorm_0"]
+        out += [np.asarray(ln["scale"], np.float32),
+                np.asarray(ln["bias"], np.float32)]
+        out += dense_arrays({k: p[b][k] for k in ("Dense_0", "Dense_1")})
+    return out + dense_arrays({"Dense_0": p["Dense_1"]})
+
+
+def model_arrays(name: str, flax_params: Mapping) -> list:
+    """The flax tree of the JAX registry's model `name` -> arrays in the
+    order of the port's `get_model(name)` module's `parameters()` (the
+    stacked `DistributionalDoubleQ` in its `params()` order). The
+    `EBMDiffusionPolicy` is laid out as `DiffusionPolicy`, `Consistency`
+    as the baseline `Diffusion` (both keep their MLP under `net` and
+    `model`)."""
+    fns = {
+        "MLPNet": lambda p: dense_arrays(_params(p)),
+        "TanhMLPPolicy": mlp_policy_arrays,
+        "TanhDiagGaussianMLPPolicy": mlp_policy_arrays,
+        "DiagGaussianMLPPolicy": diag_gaussian_arrays,
+        "MLPCritic": mlp_policy_arrays,
+        "DoubleQ": double_q_arrays,
+        "DistributionalDoubleQ": one_row_critic_arrays,
+        "DistributionalEnsembleQ": lambda p: ensemble_arrays(p, "q"),
+        "DynamicModel": lambda p: ensemble_arrays(p, "dyn"),
+        "RNDModel": rnd_arrays,
+        "DiffusionNet": lambda p: dense_arrays(_params(p)),
+        "MLPResNet": mlp_resnet_arrays,
+        "DiffusionPolicy": actor_arrays,
+        "EBMDiffusionPolicy": actor_arrays,
+        "BaselineMLP": lambda p: dense_arrays(_params(p)),
+        "Diffusion": baseline_diffusion_arrays,
+        "Consistency": baseline_diffusion_arrays,
+    }
+    if name not in fns:
+        raise KeyError(f"no conversion for {name!r}")
+    return fns[name](flax_params)
+
+
 def _lead(tree):
     """Every leaf of a nested mapping with a leading axis of 1."""
     if isinstance(tree, Mapping):

@@ -1,8 +1,9 @@
 """Metrics sink: console + JSONL, optionally W&B.
 
 Copy of `ddiffpg_tpu/utils/logger.py`. W&B attaches on top when asked for
-and importable. `log_image` writes nothing yet: the maze plots
-(`utils/plotting.py`, which needs matplotlib) are not ported.
+and importable. `log_image` writes a PNG through matplotlib, imported when
+it is called; it raises where matplotlib is missing, and the train loop's
+plot block reports that (`train.py:plot_eval`).
 """
 
 from __future__ import annotations
@@ -46,7 +47,15 @@ class Logger:
             self.wandb.log(metrics, step=step)
 
     def log_image(self, name: str, image, step: int):
-        """No-op until the plots are ported (ROADMAP.md, Queue 1)."""
+        """image: HxWx3 uint8 numpy array -> `<name, / as _>_<step>.png` in
+        the run directory (+W&B)."""
+        import matplotlib.image as mpimg
+
+        mpimg.imsave(self.dir / f"{name.replace('/', '_')}_{step}.png", image)
+        if self.wandb:
+            import wandb
+
+            self.wandb.log({name: wandb.Image(image)}, step=step)
 
     def console(self, msg: str):
         print(f"[{time.time() - self._t0:8.1f}s] {msg}", flush=True)

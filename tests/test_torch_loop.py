@@ -12,12 +12,18 @@ tests/test_torch_antmaze.py's 2e-5, far from any goal's 0.5 m edge).
 4 eval envs, eval every 2 iterations): warm-up, the initial recluster,
 two evals, a recluster, a light checkpoint, then SIGUSR1 and SIGTERM sent
 to the own process from inside the loop: two full checkpoints, a clean
-stop and the final checkpoint.
+stop and the final checkpoint. The train env's goal sits at (1.5, 1.5)
+and envs 0 and 1 always start beside it, so every step stores two
+successes beside the other envs' failures: the initial recluster finds
+modes, and the eval at iteration 0 (on the eval_freq * 5 cadence) draws
+all five maze plots. The resumed run is made without matplotlib: it says
+once that it skips the plots, and draws none.
 """
 
 import json
 import os
 import signal
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -37,10 +43,24 @@ from ddiffpg_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 from tests.jax_caches import fresh_structure_cache  # noqa: E402,F401
 
 EPISODE = 8
+GOAL = (1.5, 1.5)
+NEAR_GOAL = ((1.7, 1.5), (1.5, 1.2))     # envs 0 and 1, within 0.5 m
 TINY = ["device=cpu", "num_envs=8", "eval_num_envs=4", "algo.warm_up=8",
         "algo.batch_size=64", "algo.update_times=1", "algo.memory_size=32",
         "diffusion.update_times=2", "diffusion.diffusion_iter=2",
         "intrinsic.L=2", "eval_freq=2", "ckpt_freq_mult=1", "log_freq=1"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The runs here step 8 ants and a small agent: beside the suite's
+    other workers torch's default of a thread a core oversubscribes the
+    machine, so one intra-op thread for the module, the previous count
+    restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_eval_rollout_matches_jax():
@@ -104,9 +124,25 @@ def run(tmp_path_factory):
                     else signal.SIGTERM)
         return out
 
+    make_envs = train.make_envs
+
+    def make_envs_near_goal(cfg, device):
+        env, eval_env = make_envs(cfg, device)
+        inner = env.env
+        inner.goal_xy = torch.tensor([GOAL])
+        init = inner._init_state
+
+        def near_goal(B, xy=None):
+            state = init(B, xy)
+            state.qpos[:2, :2] = torch.tensor(NEAR_GOAL)
+            return state
+        inner._init_state = near_goal
+        return env, eval_env
+
     with pytest.MonkeyPatch.context() as mp:
         mp.setitem(maze.EPISODE_LEN, "antmaze-v1", EPISODE)
         mp.setattr(ddiffpg.AgentDDiffPG, "train_iter", train_iter)
+        mp.setattr(train, "make_envs", make_envs_near_goal)
         before = signal.getsignal(signal.SIGTERM)
         ts = train.main(TINY + ["max_step=100000", f"logdir={logdir}",
                                 "run_name=tiny"])
@@ -164,7 +200,7 @@ def test_full_checkpoint_restores_every_tensor(run):
     want_meta = blob["host_meta"]
     gens, want_gens = meta.pop("generators"), want_meta.pop("generators")
     assert meta == want_meta
-    assert meta["num_groups"] == 1 and not meta.get("light")
+    assert meta["num_groups"] > 1 and not meta.get("light")
     assert set(gens) == set(want_gens) == {"agent", "env", "eval_env",
                                            "eval"}
     for k in gens:
@@ -185,18 +221,44 @@ def test_light_checkpoint_leaves_replay_fresh(run):
             assert torch.equal(v, blob["tensors"][k]), k
 
 
-def test_resume_from_full_checkpoint(run, tmp_path):
+def test_resume_from_full_checkpoint(run, tmp_path, capsys):
     """A full resume skips the warm-up and continues from the saved step
-    and generators; one more iteration, then the final checkpoint."""
+    and generators; three more iterations with two evals, then the final
+    checkpoint. Made where matplotlib cannot be imported: the run ends
+    normally, says once that it skips the plots, and draws none."""
     _, run_dir, _ = run
     with pytest.MonkeyPatch.context() as mp:
         mp.setitem(maze.EPISODE_LEN, "antmaze-v1", EPISODE)
+        mp.setitem(sys.modules, "matplotlib", None)
         ts = train.main(TINY + [f"resume={run_dir / 'ckpt_final.pt'}",
-                                "max_step=104", f"logdir={tmp_path}",
+                                "max_step=120", f"logdir={tmp_path}",
                                 "run_name=resumed"])
-    assert int(ts.global_step) == 104
+    assert int(ts.global_step) == 120
     recs = (tmp_path / "resumed" / "metrics.jsonl").read_text()
-    assert "time/warmup_s" not in recs and "eval/return" in recs
+    assert "time/warmup_s" not in recs
+    assert recs.count("eval/return") == 2
+    out = capsys.readouterr().out
+    assert out.count("maze plots skipped: matplotlib cannot be imported") \
+        == 1
+    assert "plotting failed" not in out
+    assert not list((tmp_path / "resumed").glob("*.png"))
+
+
+def test_loop_draws_the_five_plot_families(run):
+    """The eval at iteration 0 draws the eval map and, on the
+    eval_freq * 5 cadence, the initial recluster's clusters, dendrogram,
+    failures by mode and the exploration heatmap; the eval at iteration 2
+    only its map. Each is an RGB PNG."""
+    import matplotlib.image as mpimg
+
+    _, run_dir, _ = run
+    names = sorted(p.name for p in run_dir.glob("*.png"))
+    assert names == ["cluster_64.png", "eval_map_64.png", "eval_map_80.png",
+                     "exploration_map_64.png", "hierarchy_64.png",
+                     "unsuccess_cluster_64.png"], names
+    for name in names:
+        img = mpimg.imread(run_dir / name)
+        assert img.ndim == 3 and img.shape[2] in (3, 4) and img.std() > 0
 
 
 @pytest.mark.parametrize("device,err", [("auto", RuntimeError),
@@ -213,8 +275,8 @@ def test_entry_point_device_choice(device, err, tmp_path):
 
 def test_run_modes_reads_the_final_checkpoint(run, capsys):
     """`tools/run_modes.py` rebuilds the run's agent from its command
-    line, loads the full checkpoint and reports its live modes (none in
-    this tiny run: its replay holds no success)."""
+    line, loads the full checkpoint and reports its live modes (those the
+    last recluster found among the successes beside the goal)."""
     from ddiffpg_tpu_torch.tools import run_modes
 
     _, run_dir, _ = run
@@ -222,8 +284,12 @@ def test_run_modes_reads_the_final_checkpoint(run, capsys):
         mp.setitem(maze.EPISODE_LEN, "antmaze-v1", EPISODE)
         run_modes.main([str(run_dir / "ckpt_final.pt")] + TINY)
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    meta = torch.load(run_dir / "ckpt_final.pt",
+                      weights_only=False)["host_meta"]
     assert out["env"] == "antmaze-v1"
-    assert out["num_groups"] == 1 and out["modes"] == []
+    assert out["num_groups"] == meta["num_groups"] > 1
+    assert [m["group"] for m in out["modes"]] == list(
+        range(1, out["num_groups"]))
 
 
 def test_run_modes_splits_routes_by_y():
