@@ -40,12 +40,20 @@ reload bit for bit) and TD3 on pointmaze-v1 with dense rewards (phase 14);
 the checkpoint tools on the card (phase 15: eval_ckpt, eval_goals,
 eval_modes, trace_goals, probe_qfield on the final checkpoints of phase
 10c's antmaze-v1 run and phase 13's antmaze-v2 run, probe_energy,
-run_status and archive_run, the weights bundle round-tripped, and the
-rest of the model zoo on the card against the CPU); last the profiler
-windows. It prints one line per phase and its wall
+run_status and archive_run, trace_launch, the weights bundle
+round-tripped, and the rest of the model zoo on the card against the CPU;
+the tools' rollouts step `physics/engine_cl.py`, as the JAX tools'); the
+batched engine `engine_cl` through `make(..., use_pallas=False)` on
+antmaze-v1 (SDF walls) and DrawerMulti at 4096 envs, card against CPU,
+bitwise on a repeat and through its CUDA graph, timed eager and graphed
+(phase 16); DDiffPG data-parallel (`parallel/`) in spawned processes,
+world 2 through gloo on the one card with a recluster and world 1
+through NCCL, replicated leaves bitwise alike across ranks (phase 17);
+last the profiler windows. It prints one line per phase and its wall
 seconds, JSON lines `{"train": {...}}`, `{"loop": {...}}`,
-`{"envs": {...}}`, `{"baselines": {...}}`, `{"tools": {...}}` and
-`{"kernels": [...]}`, the
+`{"envs": {...}}`, `{"baselines": {...}}`, `{"tools": {...}}`,
+`{"engine_cl": {...}}`, `{"parallel": {...}}` and `{"kernels": [...]}`,
+the
 card's name and power limit as nvidia-smi gives them, and last
 `{"ok": true, "device": {...}}`. It exits non-zero, printing
 no result, when there is no CUDA card, when the port cannot be imported, or
@@ -82,6 +90,7 @@ from ddiffpg_tpu_torch.models.diffusion import DiffusionPolicy
 from ddiffpg_tpu_torch.modes import _native
 from ddiffpg_tpu_torch.ops import dtw, dtw_cuda
 from ddiffpg_tpu_torch.physics import engine, maze
+from ddiffpg_tpu_torch.physics.engine_cl import Engine
 from ddiffpg_tpu_torch.physics import quat as Q
 from ddiffpg_tpu_torch.physics.panda import (JOINT_LIMIT_HI, JOINT_LIMIT_LO,
                                              build_panda_scene)
@@ -1990,10 +1999,12 @@ def tools_phase(smi: str, runs: dict, scratch: Path):
     (eval_goals for its two per-goal rates, and trace_goals and
     probe_qfield, whose default env it is), probe_energy, run_status and
     archive_run on both runs (its REPO pointed at `scratch`, so nothing
-    is written into the checkout); the stock agent's weights bundle
-    round-tripped bit for bit; the zoo on the card against the CPU. The
-    substep kernels the tools build count their launches from 0. Returns
-    (record, antmaze-v1 launches, antmaze-v2 launches)."""
+    is written into the checkout), trace_launch on antmaze-v1's; the stock
+    agent's weights bundle round-tripped bit for bit; the zoo on the card
+    against the CPU. The tools roll out on `engine_cl` (`use_pallas=False`,
+    as the JAX tools): its control steps are counted, and the substep
+    kernels the tools build count their launches from 0 (none expected).
+    Returns (record, antmaze-v1 launches, antmaze-v2 launches)."""
     import contextlib
     import importlib.util
     import io
@@ -2001,20 +2012,27 @@ def tools_phase(smi: str, runs: dict, scratch: Path):
     from ddiffpg_tpu_torch.tools import (archive_run, common, eval_ckpt,
                                          eval_goals, eval_modes,
                                          probe_energy, probe_qfield,
-                                         run_status, trace_goals)
+                                         run_status, trace_goals,
+                                         trace_launch)
     from ddiffpg_tpu_torch.utils import checkpoint as ckpt
 
     made, init = [], SubstepKernel.__init__
+    cl_steps, graphed = [0], Engine.graphed_step
 
     def recording_init(self, *a, **k):
         init(self, *a, **k)
         made.append(self)
+
+    def counting_step(self, *a):
+        cl_steps[0] += 1
+        return graphed(self, *a)
 
     launches = {"antmaze-v1": 0, "antmaze-v2": 0}
     rec = {}
 
     def run(label, env, fn, *args):
         made.clear()
+        cl_steps[0] = 0
         t0 = time.time()
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
@@ -2025,14 +2043,16 @@ def tools_phase(smi: str, runs: dict, scratch: Path):
         launches[env] += n
         for line in out.getvalue().splitlines():
             log("15 tools", f"{label}: {line}")
-        log("15 tools", f"{label}: {secs:.1f} s, {n} substep launches "
-            f"[{smi}]")
-        rec[label] = {"s": secs, "substep_launches": n, "out": result}
+        log("15 tools", f"{label}: {secs:.1f} s, {cl_steps[0]} engine_cl "
+            f"control steps, {n} substep launches [{smi}]")
+        rec[label] = {"s": secs, "engine_cl_steps": cl_steps[0],
+                      "substep_launches": n, "out": result}
 
     v1 = str(runs["antmaze-v1"] / "ckpt_final.pt")
     v2 = str(runs["antmaze-v2"] / "ckpt_final.pt")
     n_envs = f"num_envs={TRAIN_ENVS}"
     SubstepKernel.__init__ = recording_init
+    Engine.graphed_step = counting_step
     try:
         run("eval_ckpt v1", "antmaze-v1", eval_ckpt.main, v1, n_envs)
         run("eval_goals v1", "antmaze-v1", eval_goals.main, v1,
@@ -2043,14 +2063,24 @@ def tools_phase(smi: str, runs: dict, scratch: Path):
             "env=antmaze-v2", n_envs)
         run("trace_goals v2", "antmaze-v2", trace_goals.main, v2, n_envs)
         run("probe_qfield v2", "antmaze-v2", probe_qfield.main, v2, n_envs)
+        run("trace_launch v1", "antmaze-v1", trace_launch.main, v1, n_envs)
     finally:
         SubstepKernel.__init__ = init
+        Engine.graphed_step = graphed
     goal_keys = sorted(k for k in rec["eval_goals v2"]["out"]
                        if k.startswith("eval/success_goal"))
     log("15 tools", f"eval_goals v2 per-goal rates "
         f"{ {k: rec['eval_goals v2']['out'][k] for k in goal_keys} }")
     if goal_keys != ["eval/success_goal1", "eval/success_goal2"]:
         raise RuntimeError(f"eval_goals on antmaze-v2: keys {goal_keys}")
+    subs = rec["trace_launch v1"]["out"]["substeps"]
+    if len(subs) != 10 or not all(np.isfinite(v) for d in subs
+                                  for v in d.values()):
+        raise RuntimeError(f"trace_launch: substeps {subs}")
+    rollouts = [k for k in rec if k != "probe_qfield v2"]
+    if any(rec[k]["substep_launches"] for k in rec) or \
+            any(rec[k]["engine_cl_steps"] == 0 for k in rollouts):
+        raise RuntimeError("a tool's rollout did not step engine_cl alone")
 
     t0 = time.time()
     out = io.StringIO()
@@ -2114,6 +2144,299 @@ def tools_phase(smi: str, runs: dict, scratch: Path):
                         for name, d in runs.items()}
     log("15 tools", f"maze plots of the kept runs: {rec['plots']}")
     return rec, launches["antmaze-v1"], launches["antmaze-v2"]
+
+
+# ------------------------------------------------------- 16. engine_cl
+
+CL_STEPS = 8             # control steps of engine_cl's collects
+CL_SMALL = 40            # the tools' eval batch
+
+
+def kernel_count(fn) -> int:
+    """CUDA kernels one call of fn() launches (a torch.profiler window)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def engine_cl_phase(smi: str, kernel_ms: dict) -> dict:
+    """16: `physics/engine_cl.py` on the card through `make(...,
+    use_pallas=False)`: antmaze-v1 (the SDF walls) and
+    PandaDrawerMultiJoints-v3 collected at 4096 envs; then one control
+    step from the collect's last state and from the kernel's check
+    states (the ant's random and wall batches, Panda's random one) eager,
+    eager again and through its CUDA graph, all bitwise alike, against
+    the same step on the CPU: the check states held to the kernel's
+    bounds (the ant a control step and a substep, Panda a substep), the
+    rest reported; SDF contacts seen on the wall states; ms and kernels a
+    control step, eager and graphed, at 40 and 4096 envs beside the
+    substep kernel's ms (`kernel_ms`)."""
+    cfg = Config()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rec = {}
+    for name, tol, k_ms in (
+            ("antmaze-v1", TOL[10], kernel_ms["antmaze-v1"]),
+            ("PandaDrawerMultiJoints-v3", PANDA_TOL[20],
+             kernel_ms["DrawerMulti"])):
+        kw = {"random_init": True} if name.startswith("antmaze") else {}
+        env = make(name, num_envs=NUM_ENVS, device="cuda", seed=0,
+                   use_pallas=False, **kw)
+        inner, eng = env.env, env.env.engine
+        if inner.kernel is not None or eng is None:
+            raise RuntimeError(f"{name}: use_pallas=False built a kernel")
+        actor = Actor(env, cfg, gen)
+        state, obs = env.reset()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, obs, roll = actor.collect(env, state, obs, CL_STEPS)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        if not bool(torch.isfinite(roll.obs).all()):
+            raise RuntimeError(f"{name}: non-finite obs from engine_cl")
+        action = actor.act(obs)
+        ctrl = action if name.startswith("antmaze") else \
+            inner._ctrl_from_action(state.qpos, action)
+        # the kernel's own check states (phases 3, 3p, 11) are held to its
+        # bounds, one substep and (the ant) a control step; the collect's
+        # last state and Panda's 20 substeps are reported: the CPU rounds
+        # sin and cos and orders its sums otherwise than the card, which
+        # a chaotic contact or the kp = 2e4 servos amplify past the
+        # control-step bounds (the kernel's plain version on the card
+        # takes the kernel's own order)
+        batches = [("collected", (state.qpos, state.qvel,
+                                  ctrl.contiguous()), False)]
+        if name.startswith("antmaze"):
+            init = np.asarray(inner.model.init_qpos)
+            batches += [("random", ant_states(init, NUM_ENVS, 0, False),
+                         True),
+                        ("walls", maze_wall_states(
+                            init, maze.MAZES[name], NUM_ENVS, 5), True)]
+        else:
+            batches.append(("random", panda_states(
+                inner.model, inner.meta, NUM_ENVS, 1), True))
+        cpu = Engine(inner.model, "cpu")
+        one = dataclasses.replace(inner.model, n_substeps=1)
+        one_card, one_cpu = Engine(one, "cuda"), Engine(one, "cpu")
+        tol1 = TOL[1] if name.startswith("antmaze") else PANDA_TOL[1]
+        gate_step = name.startswith("antmaze")
+        r = {"collect_s": secs, "env_steps_per_s": NUM_ENVS * CL_STEPS / secs}
+        for label, args, gated in batches:
+            if gated:
+                e = one_card.step(*args)
+                ref = one_cpu.step(*(t.cpu() for t in args))
+                err1 = [float((a.cpu() - b).abs().max())
+                        for a, b in zip(e, ref)]
+                r[f"{label}_one_substep_err"] = err1
+                log("16 engine_cl", f"{name} {label} B={NUM_ENVS}, one "
+                    f"substep: card vs CPU max|dqpos| {err1[0]:.3g}, "
+                    f"max|dqvel| {err1[1]:.3g} (bounds {tol1[0]:g}, "
+                    f"{tol1[1]:g})")
+                if err1[0] > tol1[0] or err1[1] > tol1[1]:
+                    raise RuntimeError(f"engine_cl {name} {label}: one "
+                                       f"substep {err1}")
+            e1, e2 = eng.step(*args), eng.step(*args)
+            g = eng.graphed_step(*args)
+            bitwise = all(torch.equal(a, b) for a, b in zip(e1, e2))
+            graph_bitwise = all(torch.equal(a, b) for a, b in zip(e1, g))
+            ref = cpu.step(*(t.cpu() for t in args))
+            d = [(a.cpu() - b).abs().amax(-1) for a, b in zip(e1, ref)]
+            err = [float(x.max()) for x in d]
+            over = [int((x > t).sum()) for x, t in zip(d, tol)]
+            r[label] = {"max_abs_err": err, "envs_over": over,
+                        "p99_9": [float(x.quantile(0.999)) for x in d],
+                        "bitwise_repeat": bitwise,
+                        "graph_bitwise": graph_bitwise}
+            log("16 engine_cl", f"{name} {label} B={NUM_ENVS}: card vs CPU "
+                f"max|dqpos| {err[0]:.3g}, max|dqvel| {err[1]:.3g} (bounds "
+                f"{tol[0]:g}, {tol[1]:g}; envs over them {over}, 99.9th "
+                f"percentiles {r[label]['p99_9']}); a second call bitwise "
+                f"{bitwise}; the graph bitwise {graph_bitwise}")
+            out = gated and gate_step and (err[0] > tol[0] or err[1] > tol[1])
+            if not (bitwise and graph_bitwise) or out or \
+                    not bool(torch.isfinite(e1[1]).all()):
+                raise RuntimeError(f"engine_cl {name} {label}: {r[label]}")
+            if label == "walls":
+                qp, qv = args[0], args[1]
+                bp, bq = eng.fk(qp)
+                p0 = bp.mean(1)
+                S = eng.kin.dof_subspaces(bp - p0[:, None], bq)
+                V = eng.body_velocities(S, eng.kin.qvel_to_u(
+                    qv, bp - p0[:, None]))
+                diag = {}
+                eng.contact_forces(bp, bq, V, p0, diag=diag)
+                n_in = int((diag["pen_wall"] > 0).sum())
+                r["sdf_contacts"] = n_in
+                log("16 engine_cl", f"{name}: {n_in} probes inside the SDF "
+                    f"walls of {NUM_ENVS} ants against them")
+                if n_in == 0:
+                    raise RuntimeError("engine_cl saw no SDF contact")
+        t0 = time.time()
+        for B in (CL_SMALL, NUM_ENVS):
+            sub = tuple(t[:B].contiguous() for t in batches[0][1])
+            eng.graphed_step(*sub)              # captured outside the timing
+            eager = cuda_ms(lambda: eng.step(*sub), 3)
+            graph = cuda_ms(lambda: eng.graphed_step(*sub), 20)
+            kernels = kernel_count(lambda: eng.step(*sub))
+            r[f"B{B}"] = {"eager_ms": eager, "graph_ms": graph,
+                          "kernels": kernels}
+            log("16 engine_cl", f"{name} one control step at B={B}: eager "
+                f"{eager:.3f} ms, CUDA graph {graph:.3f} ms, {kernels} "
+                f"kernels a step; the substep kernel at B={NUM_ENVS} "
+                f"{k_ms:.4f} ms, 1 launch [{smi}]")
+        log("16 engine_cl", f"{name} collect {CL_STEPS} steps x {NUM_ENVS} "
+            f"envs: {secs:.3f} s, {r['env_steps_per_s']:.0f} env steps/s; "
+            f"timings {time.time() - t0:.1f} s")
+        rec[name] = r
+    return rec
+
+
+# ------------------------------------------------------- 17. parallel/
+
+DP_ITERS = 3             # timed iterations before the recluster
+
+
+def dp_digest(ts) -> dict:
+    """{path: sha1 of the bytes} of every replicated leaf of a DP rank's
+    state (`parallel/dp.py:state_specs`)."""
+    import hashlib
+
+    from ddiffpg_tpu_torch.parallel import dp
+    specs = dp.state_specs(ts)
+    return {k: hashlib.sha1(x.detach().cpu().numpy().tobytes()).hexdigest()
+            for k, x in ((".".join(map(str, p)), x)
+                         for p, x in dp.leaves(ts)) if specs[k] == ()}
+
+
+def dp_rank(rank: int, world: int, backend: str, store: str, out: str,
+            recluster: bool):
+    """One rank of phase 17: stock DDiffPG on antmaze-v1 at TRAIN_ENVS
+    envs across `world` ranks of one card (the substep kernel steps each
+    rank's envs): warm-up, DP_ITERS timed iterations; with `recluster`,
+    synthetic successes on MAZE_v1's two corridors written into each
+    rank's replay, a recluster and one iteration at its groups. Writes its
+    record to `out`/rank<r>.json."""
+    import hashlib
+    import pickle
+
+    import torch.distributed as dist
+
+    from ddiffpg_tpu_torch.agents import base
+    from ddiffpg_tpu_torch.parallel import dp, make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    cfg = stock_config("antmaze-v1")
+    agent = dp.DPAgentDDiffPG(cfg, make_mesh(world, device="cuda"),
+                              env_kwargs={"random_init":
+                                          cfg.env.random_init})
+    kernel = agent.agent.env.env.kernel
+    t0 = time.time()
+    ts = agent.warmup(agent.init())
+    torch.cuda.synchronize()
+    rec = {"rank": rank, "warmup_s": time.time() - t0,
+           "local_envs": agent.agent.env.num_envs,
+           "local_batch": agent.agent.cfg.algo.batch_size}
+    ts, logs = agent.train_iter(ts)              # untimed
+    torch.cuda.synchronize()
+    base.DP_COUNTS.update(all_reduce=0, elements=0)
+    kernel.launches = 0
+    t0 = time.time()
+    for _ in range(DP_ITERS):
+        ts, logs = agent.train_iter(ts)
+    torch.cuda.synchronize()
+    rec["s_per_iter"] = (time.time() - t0) / DP_ITERS
+    rec["all_reduce_per_iter"] = base.DP_COUNTS["all_reduce"] / DP_ITERS
+    rec["bytes_per_iter"] = 4 * base.DP_COUNTS["elements"] / DP_ITERS
+    rec["kernel_launches"] = kernel.launches
+    rec["logs"] = {k: float(v) for k, v in logs.items()}
+    if recluster:
+        rng = np.random.RandomState(10 + rank)
+        # the window ends before any in-flight episode outgrows the replay
+        steps = agent.agent.env.max_episode_length - int(
+            ts.replay.tmp_len.max())
+        plans, n_succ, _ = fill_plans(rng, agent.agent.env.num_envs, 250,
+                                      steps)
+        write_trajectories(ts, plans, steps, seed=20 + rank)
+        t0 = time.time()
+        ts = agent.update_cluster(ts)
+        torch.cuda.synchronize()
+        rec["recluster_s"] = time.time() - t0
+        rec["num_groups"] = agent.num_groups
+        res = agent.last_recluster
+        rec["plan"] = hashlib.sha1(pickle.dumps(
+            (res.num_groups, res.plan))).hexdigest()
+        # this rank's masks are its share of the broadcast global masks
+        S = ts.replay.length.shape[0]
+        rec["own_masks"] = bool(np.array_equal(
+            ts.replay.group_mask.cpu().numpy(),
+            res.group_mask[:, rank * S:(rank + 1) * S]))
+        t0 = time.time()
+        ts, logs = agent.train_iter(ts)
+        torch.cuda.synchronize()
+        rec["s_iter_after"] = time.time() - t0
+        rec["logs"] = {k: float(v) for k, v in logs.items()}
+        rec["successes_written"] = n_succ
+    rec["digest"] = dp_digest(ts)
+    rec["finite"] = all(np.isfinite(v) for v in rec["logs"].values())
+    with open(Path(out) / f"rank{rank}.json", "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+
+
+def dp_phase(smi: str) -> dict:
+    """17: `parallel/` on the card, in processes from
+    torch.multiprocessing.spawn (the main process holds no process group;
+    a rank's failure raises here): world 2 through gloo on the one card
+    (warm-up, iterations, a recluster of two corridors' successes and an
+    iteration), its replicated leaves bitwise alike on both ranks and the
+    masks alike; then world 1 through NCCL (warm-up, iterations)."""
+    import torch.multiprocessing as mp
+
+    rec = {}
+    for world, backend, recl in ((2, "gloo", True), (1, "nccl", False)):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as d:
+            t0 = time.time()
+            mp.spawn(dp_rank, args=(world, backend, f"{d}/store", d, recl),
+                     nprocs=world, join=True)
+            wall = time.time() - t0
+            ranks = [json.load(open(Path(d) / f"rank{r}.json"))
+                     for r in range(world)]
+        r0 = ranks[0]
+        key = f"world{world}_{backend}"
+        bad = [k for k in r0["digest"]
+               if any(r["digest"][k] != r0["digest"][k] for r in ranks)]
+        same = {k: all(r.get(k) == r0.get(k) for r in ranks)
+                for k in ("num_groups", "plan", "logs")}
+        if bad or not all(same.values()) or not all(
+                r["finite"] and r.get("own_masks", True) for r in ranks):
+            raise RuntimeError(f"DP {key}: leaves differ across ranks "
+                               f"{bad[:5]}, alike {same}")
+        rec[key] = {"spawn_s": wall, "ranks": [
+            {k: v for k, v in r.items() if k not in ("digest", "logs")}
+            for r in ranks], "replicated_leaves": len(r0["digest"])}
+        log("17 parallel", f"{key}: {r0['local_envs']} envs and batch "
+            f"{r0['local_batch']} a rank; warm-up {r0['warmup_s']:.1f} s, "
+            f"{r0['s_per_iter']:.4f} s per iteration, "
+            f"{r0['all_reduce_per_iter']:.1f} all_reduce "
+            f"({r0['bytes_per_iter']:,.0f} bytes) an iteration, substep "
+            f"launches {r0['kernel_launches']}; "
+            + (f"recluster of {r0['successes_written']} + "
+               f"{ranks[-1]['successes_written']} successes "
+               f"{r0['recluster_s']:.2f} s -> {r0['num_groups']} groups, "
+               f"then {r0['s_iter_after']:.3f} s an iteration; "
+               if recl else "")
+            + f"{len(r0['digest'])} replicated leaves bitwise alike on "
+            f"{world} ranks; {wall:.1f} s with the spawn [{smi}]")
+        if recl and r0["num_groups"] < 3:
+            raise RuntimeError(f"DP recluster found {r0['num_groups']} "
+                               "groups, not two modes and explore")
+    return rec
 
 
 def main() -> int:
@@ -2393,6 +2716,15 @@ def main() -> int:
     kept.cleanup()
     stamp("phase 15 (the tools)")
 
+    # --------------------------------------------- 16. engine_cl on the card
+    engine_cl = engine_cl_phase(smi, {"antmaze-v1": ant_ms,
+                                      "DrawerMulti": panda_ms["DrawerMulti"]})
+    stamp("phase 16 (engine_cl)")
+
+    # ------------------------------------------------- 17. data parallelism
+    parallel = dp_phase(smi)
+    stamp("phase 17 (parallel)")
+
     # device time of the new collect paths and the baselines' iterations,
     # after every timed phase
     device_split(*v3_split, "antmaze-v3", smi)
@@ -2409,6 +2741,8 @@ def main() -> int:
                                "pointmaze": points, "card": smi}}))
     print(json.dumps({"baselines": {**baselines, "card": smi}}))
     print(json.dumps({"tools": {**tools, "card": smi}}))
+    print(json.dumps({"engine_cl": {**engine_cl, "card": smi}}))
+    print(json.dumps({"parallel": {**parallel, "card": smi}}))
     print(json.dumps({"kernels": [
         kernel_entry("substep_ant",
                      ant_launches + train_launches + loop_launches

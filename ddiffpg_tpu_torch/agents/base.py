@@ -22,11 +22,87 @@ from ddiffpg_tpu_torch.ops.noise import (add_mixed_normal_noise,
                                          add_normal_noise)
 
 
+# --- the data-parallel hook -----------------------------------------------
+# Inside `data_parallel(group)` (parallel/dp.py's train step) every
+# optimizer update (`ops/optim.py:apply_update`), `update_rms` and the
+# density coverage average across the ranks of `group`, a torch.distributed
+# process group, where the JAX package pmeans across its mesh axis
+# (`ddiffpg_tpu/agents/base.py:27-76`). Outside it nothing is reduced.
+_DP_GROUP = None
+# all_reduce calls and float32 elements reduced, for the caller to read
+DP_COUNTS = {"all_reduce": 0, "elements": 0}
+
+
+class data_parallel:
+    """Context: reduce across the ranks of `group` (see above)."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def __enter__(self):
+        global _DP_GROUP
+        self._prev = _DP_GROUP
+        _DP_GROUP = self.group
+
+    def __exit__(self, *exc):
+        global _DP_GROUP
+        _DP_GROUP = self._prev
+
+
+def dp_group():
+    """The process group of the enclosing `data_parallel`, or None."""
+    return _DP_GROUP
+
+
+def maybe_psum(x):
+    """The sum across the ranks of x (a tensor or a list of float32
+    tensors, one all_reduce for the list) inside `data_parallel`, else x.
+    Every rank gets the same bits."""
+    if _DP_GROUP is None:
+        return x
+    import torch.distributed as dist
+
+    one = isinstance(x, torch.Tensor)
+    xs = [x] if one else list(x)
+    flat = torch.cat([t.reshape(-1) for t in xs])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=_DP_GROUP)
+    DP_COUNTS["all_reduce"] += 1
+    DP_COUNTS["elements"] += flat.numel()
+    out = [v.view_as(t) for v, t in zip(
+        flat.split([t.numel() for t in xs]), xs)]
+    return out[0] if one else out
+
+
+def maybe_pmean(x):
+    """The mean across the ranks of x (as `maybe_psum`) inside
+    `data_parallel`, else x: the psum over the world size, as JAX's
+    pmean."""
+    if _DP_GROUP is None:
+        return x
+    import torch.distributed as dist
+
+    n = dist.get_world_size(_DP_GROUP)
+    s = maybe_psum(x)
+    return s / n if isinstance(s, torch.Tensor) else [t / n for t in s]
+
+
 def update_rms(rms: rs.RunningMeanStd, x: torch.Tensor) -> rs.RunningMeanStd:
-    """Fold the batch x [N, D] into `rms` with its central moments. On one
-    card the JAX package's cross-shard terms vanish (the between-shard
-    spread is exactly 0), so this is `rs.update`."""
-    return rs.update(rms, x)
+    """Fold the batch x [N, D] into `rms` with its central moments. Inside
+    `data_parallel` the ranks' batch moments are reduced first, with the
+    between-rank spread of the means added to the mean within-rank
+    variance (equal batch sizes; Chan's combination), so the replicated
+    rms stays bitwise alike on every rank. Outside, the cross-rank terms
+    vanish (the spread is exactly 0) and this is `rs.update`."""
+    if _DP_GROUP is None:
+        return rs.update(rms, x)
+    import torch.distributed as dist
+
+    local_mean = x.mean(dim=0)
+    local_var = x.var(dim=0, unbiased=False)       # central, stable
+    mean, var = maybe_pmean([local_mean, local_var])
+    var = var + maybe_pmean(torch.square(local_mean - mean))
+    return rs.update_from_stats(rms, mean, var,
+                                x.shape[0] * dist.get_world_size(_DP_GROUP))
 
 
 def norm_obs(cfg, obs_rms: rs.RunningMeanStd | None,

@@ -478,8 +478,13 @@ class AgentDDiffPG:
         logs["train/num_groups"] = torch.tensor(float(G))
         logs["train/frontier_dist"] = ep.frontier_dist(ts.replay)
         if self._maze_map is not None:
+            grid = ts.density_grid
+            if base.dp_group() is not None:
+                # across ranks the grids are averaged: counts become
+                # fractional, and > 0 still marks any rank's visit
+                grid = base.maybe_pmean(grid.to(torch.float32))
             logs["train/state_coverage"] = density.coverage(
-                ts.density_grid, self._num_free)
+                grid, self._num_free)
         return ts, logs
 
     # ------------------------------------------------------- explore ratio p
@@ -528,15 +533,33 @@ class AgentDDiffPG:
         `embedding_src` or take fresh ones: `fresh_embeddings` [G_max, E]
         when given (tests feed the JAX package's draw), else a draw from
         the agent's generator."""
-        rep = ts.replay
-        host = lambda x: x.cpu().numpy()  # noqa: E731
-        pos_dim = self.cluster_manager.traj_dim
-        keep = self.cfg.algo.frontier_keep
-        protect = (host(ep.frontier_mask(rep, keep)).nonzero()[0]
-                   if keep > 0 else None)
+        *fields, protect = [None if x is None else x.cpu().numpy()
+                            for x in self.recluster_fields(ts)]
         res = self.cluster_manager.recluster(
-            host(rep.traj_id), host(rep.length), host(rep.success),
-            host(rep.obs[:, :, :pos_dim]), protect_slots=protect)
+            *fields, protect_slots=(None if protect is None
+                                    else protect.nonzero()[0]))
+        if fresh_embeddings is None:
+            fresh_embeddings = torch.randn(ts.embeddings.shape,
+                                           generator=self.generator,
+                                           device=self.device)
+        return self.apply_recluster(ts, res, fresh_embeddings)
+
+    def recluster_fields(self, ts: DDiffPGState) -> list:
+        """What the recluster reads of the replay: traj_id, length,
+        success, the position tracks and the frontier-protected slots
+        (None without `frontier_keep`)."""
+        rep = ts.replay
+        keep = self.cfg.algo.frontier_keep
+        return [rep.traj_id, rep.length, rep.success,
+                rep.obs[:, :, :self.cluster_manager.traj_dim],
+                ep.frontier_mask(rep, keep) if keep > 0 else None]
+
+    @torch.no_grad()
+    def apply_recluster(self, ts: DDiffPGState, res, fresh_embeddings,
+                        first_slot: int = 0) -> DDiffPGState:
+        """Apply a recluster's result in place: this replay holds the slots
+        first_slot.. of the one that was clustered (a data-parallel rank's
+        share)."""
         plan = res.plan
         self.num_groups = res.num_groups
         self.num_clusters = res.num_groups - 1
@@ -547,12 +570,17 @@ class AgentDDiffPG:
             if res.plot_unsuccess else None)
 
         dev = self.device
-        if len(res.evict_slots):
-            sl = torch.as_tensor(res.evict_slots, device=dev)
+        rep = ts.replay
+        S = rep.length.shape[0]
+        evict = [s - first_slot for s in res.evict_slots
+                 if first_slot <= s < first_slot + S]
+        if len(evict):
+            sl = torch.as_tensor(evict, device=dev)
             rep.length[sl] = 0
             rep.traj_id[sl] = -1
-        ep.set_groups(rep, torch.as_tensor(res.group_mask, device=dev),
-                      torch.as_tensor(plan.parent_row, device=dev))
+        ep.set_groups(rep, torch.as_tensor(
+            res.group_mask[:, first_slot:first_slot + S], device=dev),
+            torch.as_tensor(plan.parent_row, device=dev))
 
         # critic rows from their parents; fresh optimizer rows start from
         # adam_init's zeros. As in the JAX package, a fresh mode row copies
@@ -567,10 +595,6 @@ class AgentDDiffPG:
             m = fresh.reshape((-1,) + (1,) * (x.dim() - 1))
             x.copy_(torch.where(m, torch.zeros_like(x), x[src]))
 
-        if fresh_embeddings is None:
-            fresh_embeddings = torch.randn(ts.embeddings.shape,
-                                           generator=self.generator,
-                                           device=dev)
         esrc = torch.as_tensor(plan.embedding_src, device=dev)
         inherited = ts.embeddings[esrc.clamp(0, self.G_max - 1)]
         ts.embeddings.copy_(torch.where((esrc >= 0)[:, None], inherited,

@@ -15,15 +15,20 @@ Counterpart of `ddiffpg_tpu/envs/antmaze.py` (`_init_state`, `reset`,
   * random_init: torso xy ~ U(-2, 2) at every (re)set
   * control dt 0.1 s = 10 substeps of 0.01 s
 
-Physics: on a CUDA device every control step is one launch of the CUDA
-substep kernel (`physics/substep_cuda.py`), for any batch size; on the CPU
-it is the plain PyTorch version (`physics/substep.py`). The env is built on
-the card unless the caller passes `device="cpu"`, and the choice follows
-the device of the state tensors. Both use the maze's wall AABBs, like the
-Pallas kernel every archived TPU run trained on. The wall count is a
-compile-time size of the kernel and the walls' coordinates go into its
-model block, so each maze has its own build (v4 and v5, both 29 walls,
-too).
+Physics, by `use_pallas` (the JAX keyword and values): with "auto" (the
+default) or True, every control step on a CUDA device is one launch of
+the CUDA substep kernel (`physics/substep_cuda.py`), for any batch size,
+and on the CPU its plain PyTorch version (`physics/substep.py`); both test
+the maze's wall AABBs, like the Pallas kernel every archived TPU run
+trained on. The wall count is a compile-time size of the kernel and the
+walls' coordinates go into its model block, so each maze has its own
+build (v4 and v5, both 29 walls, too). With False the env steps
+`physics/engine_cl.py`, whose walls are the maze's SDF, on whichever
+device it lives (on a card through a CUDA graph a batch size), as the
+JAX tools ask for it. JAX's "auto" on the CPU is `engine_cl`; the port's
+is the kernel's plain version. The env is built on the card unless the
+caller passes `device="cpu"`, and the choice follows the device of the
+state tensors.
 """
 
 from __future__ import annotations
@@ -31,17 +36,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ddiffpg_tpu_torch.envs.base import EnvState
+from ddiffpg_tpu_torch.envs.base import EnvState, physics_of, step_physics
 from ddiffpg_tpu_torch.physics import ant as ant_model
 from ddiffpg_tpu_torch.physics import maze
-from ddiffpg_tpu_torch.physics.substep import (SubstepConstants,
-                                               substep_reference)
+from ddiffpg_tpu_torch.physics.substep import SubstepConstants
 
 
 class AntMazeEnv:
     def __init__(self, name: str = "antmaze-v1", reward_type: str = "sparse",
                  random_init: bool = False, maze_size_scaling: float = 4.0,
                  dt: float = 0.01, n_substeps: int = 10,
+                 use_pallas: str | bool = "auto",
                  device: str | torch.device = "cuda", seed: int = 0):
         self.name = name
         self.maze_map = maze.MAZES[name]
@@ -68,23 +73,13 @@ class AntMazeEnv:
                                       dtype=torch.float32, device=self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
-        if self.device.type == "cuda":
-            from ddiffpg_tpu_torch.physics.substep_cuda import SubstepKernel
-            self.kernel = SubstepKernel(self.consts, device=self.device)
-        elif self.device.type == "cpu":
-            self.kernel = None
-        else:
-            raise NotImplementedError(f"AntMazeEnv on {self.device}")
+        self.kernel, self.engine = physics_of(self.model, self.consts,
+                                              self.device, use_pallas)
 
     # -- physics --------------------------------------------------------------
 
     def _physics(self, qpos, qvel, ctrl):
-        if qpos.device.type == "cpu":
-            return substep_reference(self.consts, qpos, qvel, ctrl)
-        if self.kernel is None or qpos.device != self.kernel.device:
-            raise RuntimeError(f"state on {qpos.device}, env built for "
-                               f"{self.device}")
-        return self.kernel(qpos, qvel, ctrl.contiguous())
+        return step_physics(self, qpos, qvel, ctrl.contiguous())
 
     # -- batched API ------------------------------------------------------------
 

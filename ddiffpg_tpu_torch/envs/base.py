@@ -5,7 +5,9 @@ PRNG key per env for auto-reset draws; here the env draws its resets from a
 `torch.Generator` on its device, so the state is (qpos, qvel, t).
 `pallas_step_padded` has no counterpart: the CUDA kernel masks its own
 tail, so eval batches (20 envs) and training batches (256 or 4096)
-integrate through the same kernel unpadded.
+integrate through the same kernel unpadded. `physics_of` and
+`step_physics` pick and step an env's physics by the JAX keyword
+`use_pallas`.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from ddiffpg_tpu_torch.physics.substep import substep_reference
 
 
 class EnvState(NamedTuple):
@@ -55,3 +59,34 @@ class VecEnv:
     def step(self, state: EnvState, action: torch.Tensor,
              reset_xy: torch.Tensor | None = None):
         return self.env.step_batched(state, action, reset_xy=reset_xy)
+
+
+def physics_of(model, consts, device: torch.device, use_pallas):
+    """An env's physics by the JAX keyword `use_pallas`: "auto" or True,
+    the substep kernel on a card (None on the CPU, which steps its plain
+    version); False, `physics/engine_cl.py`'s engine on `device`. Returns
+    (kernel, engine), one of them None."""
+    if use_pallas not in ("auto", True, False):
+        raise ValueError(f"use_pallas={use_pallas!r}: 'auto', True or False")
+    if device.type not in ("cuda", "cpu"):
+        raise NotImplementedError(f"an env on {device}")
+    if use_pallas is False:
+        from ddiffpg_tpu_torch.physics.engine_cl import Engine
+        return None, Engine(model, device)
+    if device.type == "cpu":
+        return None, None
+    from ddiffpg_tpu_torch.physics.substep_cuda import SubstepKernel
+    return SubstepKernel(consts, device=device), None
+
+
+def step_physics(env, qpos, qvel, ctrl):
+    """One control step of `env`'s physics (`physics_of`) on the state's
+    device, which must be the env's."""
+    if env.engine is not None:
+        return env.engine.graphed_step(qpos, qvel, ctrl)
+    if qpos.device.type == "cpu":
+        return substep_reference(env.consts, qpos, qvel, ctrl)
+    if env.kernel is None or qpos.device != env.kernel.device:
+        raise RuntimeError(f"state on {qpos.device}, env built for "
+                           f"{env.device}")
+    return env.kernel(qpos, qvel, ctrl)

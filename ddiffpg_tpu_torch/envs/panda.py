@@ -20,11 +20,14 @@ there:
   * random_init_pos: arm joints + U(-0.1, 0.1) at every (re)set
   * control dt 0.04 s = 20 substeps of 0.002 s
 
-Physics: on a CUDA device every control step is one launch of the CUDA
-substep kernel (`physics/substep_cuda.py`), for any batch size; on the CPU
-it is the plain PyTorch version (`physics/substep.py`). The env is built on
-the card unless the caller passes `device="cpu"`. The kinematics (FK for
-the observation and the IK) read index and constant tensors the env builds
+Physics, by `use_pallas` (the JAX keyword and values): with "auto" (the
+default) or True, every control step on a CUDA device is one launch of
+the CUDA substep kernel (`physics/substep_cuda.py`), for any batch size,
+and on the CPU its plain PyTorch version (`physics/substep.py`); with
+False the env steps `physics/engine_cl.py` on whichever device it lives
+(on a card through a CUDA graph a batch size). The env is built on the
+card unless the caller passes `device="cpu"`. The kinematics (FK for the
+observation and the IK) read index and constant tensors the env builds
 once (`physics/panda.py:Arm`).
 """
 
@@ -33,16 +36,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ddiffpg_tpu_torch.envs.base import EnvState
+from ddiffpg_tpu_torch.envs.base import EnvState, physics_of, step_physics
 from ddiffpg_tpu_torch.physics import panda as P
-from ddiffpg_tpu_torch.physics.substep import (SubstepConstants,
-                                               substep_reference)
+from ddiffpg_tpu_torch.physics.substep import SubstepConstants
 
 
 class PandaTaskEnv:
     def __init__(self, task: str = "Reach", reward_type: str = "sparse",
                  control_type: str = "joints", random_init_pos: bool = False,
                  max_episode_steps: int = 100,
+                 use_pallas: str | bool = "auto",
                  device: str | torch.device = "cuda", seed: int = 0):
         if control_type not in ("joints", "ee"):
             raise ValueError(f"control_type={control_type!r}: 'joints' or "
@@ -84,23 +87,13 @@ class PandaTaskEnv:
             self.goal = const(np.asarray(self.meta["goals"], np.float32))
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
-        if self.device.type == "cuda":
-            from ddiffpg_tpu_torch.physics.substep_cuda import SubstepKernel
-            self.kernel = SubstepKernel(self.consts, device=self.device)
-        elif self.device.type == "cpu":
-            self.kernel = None
-        else:
-            raise NotImplementedError(f"PandaTaskEnv on {self.device}")
+        self.kernel, self.engine = physics_of(self.model, self.consts,
+                                              self.device, use_pallas)
 
     # -- physics --------------------------------------------------------------
 
     def _physics(self, qpos, qvel, ctrl):
-        if qpos.device.type == "cpu":
-            return substep_reference(self.consts, qpos, qvel, ctrl)
-        if self.kernel is None or qpos.device != self.kernel.device:
-            raise RuntimeError(f"state on {qpos.device}, env built for "
-                               f"{self.device}")
-        return self.kernel(qpos, qvel, ctrl)
+        return step_physics(self, qpos, qvel, ctrl)
 
     # -- obs ------------------------------------------------------------------
 

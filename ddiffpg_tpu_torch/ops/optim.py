@@ -110,11 +110,15 @@ def adam_step(params, grads, state: AdamState, spec: OptimizerSpec):
 def apply_update(params, grads, state: AdamState, spec: OptimizerSpec,
                  G: int | None = None):
     """`ddiffpg_tpu/agents/base.py:apply_update` in place: one step of the
-    chain. With `G`, the tensors' first axis is the row axis of `state`
-    and only rows `:G` move; returns the pre-clip norm per moved row."""
+    chain on the gradients averaged across the ranks of a
+    `agents/base.py:data_parallel` context (one all_reduce; none outside
+    it). With `G`, the tensors' first axis is the row axis of `state` and
+    only rows `:G` move; returns the pre-clip norm per moved row."""
+    from ddiffpg_tpu_torch.agents.base import maybe_pmean
+
     if G is None:
-        return adam_step(params, grads, state, spec)
+        return adam_step(params, maybe_pmean(list(grads)), state, spec)
     sub = AdamState([m[:G] for m in state.mu], [v[:G] for v in state.nu],
                     state.count[:G])
-    return adam_step([p[:G] for p in params], [g[:G] for g in grads], sub,
-                     spec)
+    return adam_step([p[:G] for p in params],
+                     maybe_pmean([g[:G] for g in grads]), sub, spec)

@@ -6,4 +6,6 @@
                                   subspaces, body velocities)
   substep.py                    — model check, constants, plain substep
   substep_cuda.py               — build/load/launch of csrc/substep.cu
+  engine_cl.py                  — the JAX package's batched XLA engine in
+                                  plain PyTorch (SDF walls; use_pallas=False)
 """

@@ -3,12 +3,11 @@
 Counterpart of the kinematic half of `ddiffpg_tpu/physics/engine.py`:
 `_structure`, `fk`, `dof_subspaces`, `qvel_to_u`, `_joint_vel` and
 `body_velocities`, in world-origin coordinates as there. `Kinematics`
-holds a model's structure and its index and constant tensors on a device,
-built once; the Panda env's observation (end-effector position and
-velocity) and its `ee` control's IK are built from one. The
-dynamics of that engine (`crba`, `bias_forces`, `contact_forces`, `step`)
-are not ported: the substep kernel and its plain version
-(`physics/substep.py`) are the port's physics.
+holds a model's structure and its index and constant tensors on a device
+(the card unless told otherwise), built once; the Panda env's observation
+(end-effector position and velocity), its `ee` control's IK and the
+batched engine `physics/engine_cl.py` (the dynamics) are built on one.
+The per-env engine's own dynamics are not ported a second time.
 """
 
 from __future__ import annotations
@@ -52,7 +51,7 @@ class Kinematics:
     module's functions below build one a call. Outputs are bitwise those of
     the per-call functions: the same ops on the same values."""
 
-    def __init__(self, m: Model, device: str | torch.device = "cpu"):
+    def __init__(self, m: Model, device: str | torch.device = "cuda"):
         self.m = m
         self.device = dev = torch.device(device)
 

@@ -230,7 +230,7 @@ class Arm:
     model's `engine.Kinematics` and the arm's index and constant tensors,
     so that a control step uploads nothing."""
 
-    def __init__(self, model, meta, device: str | torch.device = "cpu"):
+    def __init__(self, model, meta, device: str | torch.device = "cuda"):
         self.kin = engine.Kinematics(model, device)
         dev = self.kin.device
         self.hand = int(meta["hand_idx"])

@@ -9,11 +9,10 @@ on the CPU. A dotted key (`algo.memory_size=64`, `env.resolution=357`)
 overrides the config as on `train.main`'s command line, so that the agent
 is rebuilt with the shapes of the run that wrote the checkpoint.
 
-The JAX package's tools step `engine_cl` (its engine for the CPU, with
-SDF walls), because Mosaic does not target the CPU. These tools step the
-physics that training steps: the substep kernel (`csrc/substep.cu`, AABB
-walls) on the card, `physics/substep.py:substep_reference` on the CPU.
-That is why the two packages' rollout numbers are not compared.
+Their eval envs take the JAX tools' physics: `use_pallas=False`, the
+batched engine `physics/engine_cl.py` (the maze's SDF walls), for the ant
+and Panda names, on the card or on the CPU. Pointmaze has no engine in
+either package; its envs step as in training.
 """
 
 from __future__ import annotations
@@ -70,11 +69,14 @@ def load(path, kw: dict, overrides=()):
 
 
 def eval_env(cfg, num_envs: int, seed: int, random_init=None):
-    """An env of the config's name on the agent's device; `random_init`
+    """An env of the config's name on the agent's device, on the JAX
+    tools' physics (`use_pallas=False` but for pointmaze); `random_init`
     (antmaze only) as the JAX tool passes it, else the config's."""
     kw = train.env_kwargs(cfg)
     if random_init is not None and "antmaze" in cfg.env.name:
         kw["random_init"] = random_init
+    if not cfg.env.name.startswith("pointmaze"):
+        kw["use_pallas"] = False
     return make(cfg.env.name, num_envs=num_envs,
                 device=train.resolve_device(cfg.device), seed=seed, **kw)
 

@@ -19,10 +19,10 @@ episode length, classifying every episode end:
 
 It prints the per-goal successes, the percentiles of torso z, |xy|, the
 distance to the nearest goal, |vz| and the largest hinge speed, and the
-steps leading to the highest torso z (the launch trace). On the card
-(`device=auto`, the default; it raises without one) the rollout steps the
-substep kernel, on the CPU (`device=cpu`) `substep_reference`; the JAX
-tool steps `engine_cl`, so the two tools' numbers are not compared.
+steps leading to the highest torso z (the launch trace). The rollout
+steps `physics/engine_cl.py` (`use_pallas=False`: the maze's SDF walls),
+as the JAX tool's does, on the card (`device=auto`, the default; it
+raises without one) or on the CPU (`device=cpu`).
 """
 
 from __future__ import annotations

@@ -8,10 +8,11 @@ Counterpart of the root `tools/eval_goals.py`: the in-run eval
 breakdown) of the agent's eval policy, `seeds` times (actor draws seeded
 100, 101, ...), on a full or light checkpoint written by `train.main`
 (`num_envs` and any dotted override must be the run's). Prints one JSON
-line per seed and a summary weighted by each seed's episodes. On the card
-(`device=auto`, the default; it raises without one) the ant and Panda
-rollouts step the substep kernel, on the CPU (`device=cpu`)
-`substep_reference`; the JAX tool steps `engine_cl`.
+line per seed and a summary weighted by each seed's episodes. The ant and
+Panda rollouts step `physics/engine_cl.py` (`use_pallas=False`), as the
+JAX tool's do, on the card (`device=auto`, the default; it raises without
+one) or on the CPU (`device=cpu`). Pointmaze has no engine: the JAX tool
+raises on its names (its env takes no `use_pallas`), this one runs them.
 """
 
 from __future__ import annotations

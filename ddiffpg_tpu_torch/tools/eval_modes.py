@@ -20,9 +20,9 @@ run's; a light checkpoint has no replay and is refused):
      (c): the actor lags the distillation; (b) ~ (a): the action gradient
      is weak. Group 0 decodes on the explore critic's own support.
 
-On the card (`device=auto`, the default; it raises without one) the
-rollouts step the substep kernel, on the CPU (`device=cpu`)
-`substep_reference`; the JAX tool steps `engine_cl`.
+The rollouts step `physics/engine_cl.py` (`use_pallas=False`), as the
+JAX tool's do, on the card (`device=auto`, the default; it raises without
+one) or on the CPU (`device=cpu`).
 """
 
 from __future__ import annotations

@@ -10,10 +10,10 @@ control steps, uniform random) and reports the worst torso height,
 vertical speed and hinge speed reached, the share of hinge speeds at the
 qvel clamp and the episode ends. A sane ant with gear-30 motors tops out
 near one body height; metres of altitude or hinge speeds pinned at the
-clamp point at an energy leak. On the card (`device=auto`, the default;
-it raises without one) it steps the substep kernel, on the CPU
-(`device=cpu`) `substep_reference`; the JAX tool steps `engine_cl`, so
-the two tools' numbers are not compared.
+clamp point at an energy leak. It steps `physics/engine_cl.py`
+(`use_pallas=False`: the maze's SDF walls), as the JAX tool does, on the
+card (`device=auto`, the default; it raises without one) or on the CPU
+(`device=cpu`).
 """
 
 from __future__ import annotations
@@ -59,7 +59,8 @@ def main(argv=None) -> dict:
     kw, _ = common.parse(argv, steps="300", envs="8")
     T, E = int(kw["steps"]), int(kw["envs"])
     device = train.resolve_device(kw["device"])
-    env = make("antmaze-v1", num_envs=E, random_init=False, device=device)
+    env = make("antmaze-v1", num_envs=E, random_init=False, device=device,
+               use_pallas=False)
     out = {}
     for name in PATTERNS:
         gen = torch.Generator(device=device).manual_seed(0)

@@ -11,9 +11,9 @@ the whole batch, and the mean and spread of the timeouts' terminal xy. On
 a multi-goal maze a mode can head the right way and time out, which the
 success rate alone does not show. Takes a full or light checkpoint
 written by `train.main` (`num_envs` and any dotted override must be the
-run's). On the card (`device=auto`, the default; it raises without one)
-the rollouts step the substep kernel, on the CPU (`device=cpu`)
-`substep_reference`; the JAX tool steps `engine_cl`.
+run's). The rollouts step `physics/engine_cl.py` (`use_pallas=False`),
+as the JAX tool's do, on the card (`device=auto`, the default; it raises
+without one) or on the CPU (`device=cpu`).
 """
 
 from __future__ import annotations

@@ -364,3 +364,32 @@ def cluster_state(cm, jcm):
     cm.scheduler.last_cluster = [list(c) for c in jcm.scheduler.last_cluster]
     cm.rng.setstate(jcm.rng.getstate())
     return cm
+
+
+def split_dp(tree, rank: int, world: int, axis: str = "data", path=()):
+    """Rank `rank`'s share of a JAX data-parallel global state (numpy
+    leaves; `ddiffpg_tpu/parallel/dp.py`'s layout): every leaf that
+    `parallel/dp.py:leaf_spec` splits is cut into `world` equal parts
+    along its split axis and part `rank` kept; the rest is replicated and
+    kept whole. The result is the JAX local state that
+    `DPAgentDDiffPG.init` concatenated, for `ddiffpg_state`."""
+    from ddiffpg_tpu_torch.parallel.dp import leaf_spec
+
+    if tree is None:
+        return None
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[split_dp(getattr(tree, f), rank, world, axis,
+                                     path + (f,)) for f in tree._fields])
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(split_dp(v, rank, world, axis, path + (i,))
+                          for i, v in enumerate(tree))
+    if isinstance(tree, Mapping):
+        return {k: split_dp(v, rank, world, axis, path + (k,))
+                for k, v in tree.items()}
+    spec = leaf_spec(path, axis)
+    if not spec:
+        return tree
+    arr = np.asarray(tree)
+    ax = spec.index(axis)
+    n = arr.shape[ax] // world
+    return np.take(arr, np.arange(rank * n, (rank + 1) * n), axis=ax)

@@ -1,6 +1,7 @@
 """Every env name of the JAX package's registry in the port: the registry,
 Panda's `ee` control (Jacobian, DLS IK, control targets and one env step
-against the JAX package; `tests/test_panda.py`'s ee tests re-run on the
+against the JAX package, on the kernel's plain version and on `engine_cl`
+with `use_pallas=False`; `tests/test_panda.py`'s ee tests re-run on the
 port), `PointMazeEnv` against the vmapped JAX env, the eval's goal count,
 the density grid of the largest maze, the recluster's track subsampling and
 the hoisted kinematics against the per-call path."""
@@ -233,6 +234,52 @@ def test_ee_env_step_matches_jax(task, reward_type, random_init):
     if task == "DrawerMulti":
         assert done[:2].tolist() == [False, True]
         assert int(info["success"][1]) == 3 and float(rew[1]) == 10.0
+
+
+def test_drawer_ee_engine_cl_step_matches_jax():
+    """PandaDrawerMulti-v3 (`ee` control) with use_pallas=False from the
+    same arm states, with JAX's servo targets and reset draws fed in
+    (tests/test_torch_envs_all.py's case: env 1 inside the goal, env 2 at
+    its last step), against JAX's step: ee position and task joints 1e-4,
+    qpos 1e-3, velocities 5e-2 (the stiff servos amplify ulps over 20
+    substeps), reward, done, success and time-outs exact."""
+    jenv, program = _jax_ee("DrawerMulti", "sparse", False)
+    env = make("PandaDrawerMulti-v3", num_envs=B, device="cpu",
+               use_pallas=False)
+    assert env.env.engine is not None and env.env.kernel is None
+    inner = env.env
+    qpos, act, t = _arm_states(inner, 0)
+    jstate = JaxState(jnp.asarray(qpos), jnp.zeros((B, inner.model.nv)),
+                      jnp.asarray(t), jax.random.split(jax.random.PRNGKey(0),
+                                                       B))
+    parts, (jnew, jobs, jrew, jdone, jinfo) = program(jstate,
+                                                      jnp.asarray(act))
+    ctrl = torch.tensor(np.asarray(parts[1]))
+    np.testing.assert_allclose(
+        inner._ctrl_from_action(torch.tensor(qpos), torch.tensor(act)),
+        ctrl, atol=1e-5, rtol=0)
+    inner._ctrl_from_action = lambda q, a: ctrl
+    new, obs, rew, done, info = env.step(
+        EnvState(torch.tensor(qpos), torch.zeros(B, inner.model.nv),
+                 torch.tensor(t)), torch.tensor(act))
+    np.testing.assert_array_equal(done.numpy(), np.asarray(jdone))
+    np.testing.assert_array_equal(rew.numpy(), np.asarray(jrew))
+    np.testing.assert_array_equal(info["success"].numpy(),
+                                  np.asarray(jinfo["success"]))
+    np.testing.assert_array_equal(info["time_outs"].numpy(),
+                                  np.asarray(jinfo["time_outs"]))
+    jobs = np.asarray(jobs)
+    np.testing.assert_allclose(obs[:, :3].numpy(), jobs[:, :3], atol=1e-4,
+                               rtol=0)
+    np.testing.assert_allclose(obs[:, 3:6].numpy(), jobs[:, 3:6], atol=5e-2,
+                               rtol=0)
+    np.testing.assert_allclose(obs[:, 6:].numpy(), jobs[:, 6:], atol=1e-4,
+                               rtol=0)
+    np.testing.assert_allclose(new.qpos.numpy(), np.asarray(jnew.qpos),
+                               atol=1e-3, rtol=0)
+    np.testing.assert_allclose(new.qvel.numpy(), np.asarray(jnew.qvel),
+                               atol=5e-2, rtol=0)
+    assert done[:3].tolist() == [False, True, True]
 
 
 # test_panda.py's ee tests, on the port with the same inputs

@@ -50,7 +50,8 @@ from ddiffpg_tpu_torch.physics import maze  # noqa: E402
 from ddiffpg_tpu_torch.replay import episodic as ep  # noqa: E402
 from ddiffpg_tpu_torch.tools import (archive_run, common, eval_ckpt,  # noqa
                                      eval_goals, eval_modes, probe_energy,
-                                     probe_qfield, run_status, trace_goals)
+                                     probe_qfield, run_status, trace_goals,
+                                     trace_launch)
 from ddiffpg_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 from ddiffpg_tpu_torch.utils import convert, plotting  # noqa: E402
 from ddiffpg_tpu_torch.utils.logger import Logger  # noqa: E402
@@ -464,8 +465,98 @@ def test_eval_modes_refuses_a_light_checkpoint(ckpts):
         eval_modes.main([path, *args])
 
 
+def test_trace_launch_main(ckpts, capsys, tmp_path):
+    """trace_launch on the CPU prints the JAX tool's lines (the env, its
+    jump, the steps around it, one line a substep with the four contact
+    diagnostics, the end) and `save=` writes [T, E, ...] arrays."""
+    path, args = ckpts["antmaze-v1"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(maze.EPISODE_LEN, "antmaze-v1", 3)
+        out = trace_launch.main([path, *args, f"save={tmp_path / 'tr.npz'}"])
+    text = capsys.readouterr().out
+    assert f"saved trajectory -> {tmp_path / 'tr.npz'}" in text
+    assert f"env {out['env']}: max |vxy|" in text and "first jump >5.0" in text
+    assert "substep forensics at t=" in text and "  end  z=" in text
+    lines = [ln for ln in text.splitlines() if ln.startswith("  s=")]
+    assert len(lines) == 10 == len(out["substeps"])
+    assert all(k in lines[0] for k in ("pen_floor_max=", "pen_wall_max=",
+                                       "Fz_sum=", "Fxy_max="))
+    tr = np.load(tmp_path / "tr.npz")
+    assert tr["qpos"].shape == (3, 4, 15) and tr["qvel"].shape == (3, 4, 14)
+    assert tr["act"].shape == (3, 4, 8) and tr["done"].shape == (3, 4)
+    assert tr["done"][-1].all()
+
+
+def test_trace_launch_diagnostics_match_jax_engine():
+    """trace_launch's diagnostics (the port's engine_cl on the AABB walls)
+    at ants against antmaze-v1's walls equal the JAX tool's, computed as it
+    computes them on the per-env engine (fk, subspaces, velocities,
+    `_sphere_points`, `_point_box_distance`, `contact_forces`), within
+    1e-4 relative to max(1, |value|)."""
+    from ddiffpg_tpu.envs.antmaze import AntMazeEnv as JaxAntMaze
+    from ddiffpg_tpu.physics import engine as jengine
+    from ddiffpg_tpu_torch.envs.antmaze import AntMazeEnv
+
+    # no stale structure of a freed model of this module (jax_caches.py)
+    jengine._STRUCT_CACHE.clear()
+    jm = JaxAntMaze("antmaze-v1").model
+
+    @jax.jit
+    def jdiag(qpos, qvel):
+        body_pos, body_quat = jengine.fk(jm, qpos)
+        S = jengine.dof_subspaces(jm, body_pos, body_quat)
+        V = jengine.body_velocities(
+            jm, S, jengine.qvel_to_u(jm, qvel, body_pos))
+        gpos, gquat = jengine._geom_world(jm, body_pos, body_quat)
+        pts, rads, _ = jengine._sphere_points(jm, gpos, gquat)
+        d_b, _ = jengine._point_box_distance(
+            pts[:, None, :], jnp.asarray(jm.static_box_min)[None],
+            jnp.asarray(jm.static_box_max)[None])
+        F = jengine.contact_forces(jm, body_pos, body_quat, V)
+        return (jnp.maximum(-(pts[:, 2] - rads), 0.0).max(),
+                jnp.maximum(-(d_b - rads[:, None]), 0.0).max(),
+                F[:, 5].sum(), jnp.abs(F[:, 3:5]).max())
+
+    eng = trace_launch.box_engine(AntMazeEnv(device="cpu").model, "cpu")
+    rng = np.random.RandomState(7)
+    walls = 0
+    for _ in range(6):
+        qpos = np.asarray(jm.init_qpos, np.float32).copy()
+        qpos[:3] = (rng.uniform(-1.9, -1.5), rng.uniform(-1, 1),
+                    rng.uniform(0.3, 0.7))
+        qpos[7:] += rng.uniform(-0.3, 0.3, 8).astype(np.float32)
+        qvel = rng.uniform(-2, 2, 14).astype(np.float32)
+        got = trace_launch.diagnostics(eng, torch.tensor(qpos),
+                                       torch.tensor(qvel))
+        want = dict(zip(("pen_floor_max", "pen_wall_max", "Fz_sum",
+                         "Fxy_max"), (float(v) for v in jdiag(qpos, qvel))))
+        assert list(got) == list(want)
+        for k in want:
+            assert abs(got[k] - want[k]) <= 1e-4 * max(1.0, abs(want[k])), \
+                (k, got[k], want[k])
+        walls += want["pen_wall_max"] > 0.01
+    assert walls >= 3
+
+
+def test_tools_eval_env_steps_engine_cl():
+    """The tools' eval env takes the JAX tools' physics: engine_cl
+    (`use_pallas=False`) for the ant and Panda, pointmaze's own step."""
+    from ddiffpg_tpu_torch.physics.engine_cl import Engine
+
+    for name, engine in (("antmaze-v1", True), ("PandaReachJoints-v3", True),
+                         ("pointmaze-v1", False)):
+        cfg = C.Config(algo=C.algo_preset("ddiffpg")).override_strings(
+            [f"env.name={name}", "device=cpu"])
+        env = common.eval_env(cfg, 2, 0, random_init=True)
+        assert isinstance(getattr(env.env, "engine", None), Engine) == engine
+        state, obs = env.reset()
+        _, obs, _, _, _ = env.step(state, torch.zeros(2, env.action_dim))
+        assert bool(torch.isfinite(obs).all())
+
+
 @pytest.mark.parametrize("tool", [eval_ckpt, eval_goals, eval_modes,
-                                  trace_goals, probe_qfield, probe_energy])
+                                  trace_goals, probe_qfield, probe_energy,
+                                  trace_launch])
 def test_tools_need_a_card_unless_told_cpu(tool, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=auto runs there")
