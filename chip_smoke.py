@@ -45,14 +45,20 @@ round-tripped, and the rest of the model zoo on the card against the CPU;
 the tools' rollouts step `physics/engine_cl.py`, as the JAX tools'); the
 batched engine `engine_cl` through `make(..., use_pallas=False)` on
 antmaze-v1 (SDF walls) and DrawerMulti at 4096 envs, card against CPU,
-bitwise on a repeat and through its CUDA graph, timed eager and graphed
+bitwise on a repeat and through its CUDA graph, each substep of its
+control steps held to the one-substep bounds against the CPU from the
+card's own state, timed eager and graphed
 (phase 16); DDiffPG data-parallel (`parallel/`) in spawned processes,
 world 2 through gloo on the one card with a recluster and world 1
 through NCCL, replicated leaves bitwise alike across ranks (phase 17);
+the last helpers (phase 18: the DTW kernel against the host float64 DTW
+of `csrc/cluster.cpp`, `waypoint_policy` driving pointmaze-v1 and v2 to
+every goal on the card, `quat.integrate` on the card against the CPU);
 last the profiler windows. It prints one line per phase and its wall
 seconds, JSON lines `{"train": {...}}`, `{"loop": {...}}`,
 `{"envs": {...}}`, `{"baselines": {...}}`, `{"tools": {...}}`,
-`{"engine_cl": {...}}`, `{"parallel": {...}}` and `{"kernels": [...]}`,
+`{"engine_cl": {...}}`, `{"parallel": {...}}`, `{"helpers": {...}}` and
+`{"kernels": [...]}`,
 the
 card's name and power limit as nvidia-smi gives them, and last
 `{"ok": true, "device": {...}}`. It exits non-zero, printing
@@ -90,7 +96,7 @@ from ddiffpg_tpu_torch.models.diffusion import DiffusionPolicy
 from ddiffpg_tpu_torch.modes import _native
 from ddiffpg_tpu_torch.ops import dtw, dtw_cuda
 from ddiffpg_tpu_torch.physics import engine, maze
-from ddiffpg_tpu_torch.physics.engine_cl import Engine
+from ddiffpg_tpu_torch.physics.engine_cl import Engine, chol_solve
 from ddiffpg_tpu_torch.physics import quat as Q
 from ddiffpg_tpu_torch.physics.panda import (JOINT_LIMIT_HI, JOINT_LIMIT_LO,
                                              build_panda_scene)
@@ -386,33 +392,33 @@ def without_dynamic_boxes(c: SubstepConstants) -> SubstepConstants:
 
 
 def check_kernel(kern: SubstepKernel, label: str, args, tol, phase: str):
-    """Kernel vs plain version at NUM_ENVS, BASELINE_ENVS and EVAL_ENVS
-    rows; the smaller launches must give the largest one's first rows bit
-    for bit. Returns the largest error."""
-    outs, worst = {}, 0.0
-    for B in (NUM_ENVS, BASELINE_ENVS, EVAL_ENVS):
-        sub = tuple(a[:B].contiguous() for a in args)
-        got = kern(*sub)
-        ref = substep_reference(kern.consts, *sub)
-        torch.cuda.synchronize()
-        eq = float((got[0] - ref[0]).abs().max())
-        ev = float((got[1] - ref[1]).abs().max())
-        tq, tv = tol
-        ok = eq <= tq and ev <= tv and all(
-            bool(torch.isfinite(g).all()) for g in got)
-        log(phase, f"{label} B={B} n_substeps={kern.consts.n_substeps}: "
-            f"max|err| qpos {eq:.3e} (tol {tq:g}) qvel {ev:.3e} (tol {tv:g})"
-            f" {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise RuntimeError("kernel disagrees with plain version")
-        worst = max(worst, eq, ev)
-        outs[B] = got
+    """Kernel vs plain version at NUM_ENVS rows; the launches at
+    BASELINE_ENVS and EVAL_ENVS rows (the kernel's tail masking) must give
+    the largest one's first rows bit for bit, which holds them to the
+    plain version too. Returns the largest error."""
+    full = tuple(a[:NUM_ENVS].contiguous() for a in args)
+    got = kern(*full)
+    ref = substep_reference(kern.consts, *full)
+    torch.cuda.synchronize()
+    eq = float((got[0] - ref[0]).abs().max())
+    ev = float((got[1] - ref[1]).abs().max())
+    tq, tv = tol
+    ok = eq <= tq and ev <= tv and all(
+        bool(torch.isfinite(g).all()) for g in got)
+    log(phase, f"{label} B={NUM_ENVS} n_substeps={kern.consts.n_substeps}: "
+        f"max|err| qpos {eq:.3e} (tol {tq:g}) qvel {ev:.3e} (tol {tv:g})"
+        f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("kernel disagrees with plain version")
     for B in (BASELINE_ENVS, EVAL_ENVS):
-        for a, b in zip(outs[B], outs[NUM_ENVS]):
-            if not torch.equal(a, b[:B]):
-                raise RuntimeError(f"{label}: B={B} rows differ from "
-                                   f"B={NUM_ENVS} rows")
-    return worst
+        small = kern(*(a[:B].contiguous() for a in args))
+        same = all(torch.equal(a, b[:B]) for a, b in zip(small, got))
+        log(phase, f"{label} B={B} n_substeps={kern.consts.n_substeps}: "
+            f"bitwise the B={NUM_ENVS} launch's first rows {same}")
+        if not same:
+            raise RuntimeError(f"{label}: B={B} rows differ from "
+                               f"B={NUM_ENVS} rows")
+    return max(eq, ev)
 
 
 def check_collect(env, roll, state, t_before, n_steps: int, what: str):
@@ -2152,6 +2158,92 @@ CL_STEPS = 8             # control steps of engine_cl's collects
 CL_SMALL = 40            # the tools' eval batch
 
 
+def stage_errors(card: Engine, cpu: Engine, qpos, qvel, ctrl) -> dict:
+    """{stage: (max |card - CPU|, max |card|)} of one `Engine.substep` on
+    these card tensors, each stage fed the card's own inputs on both sides
+    (copied to the CPU), so that a stage's error is its own and not what
+    it inherits; `substep` is the whole substep, its integration last."""
+    err = {}
+
+    def cmp(stage, got, fn, *args):
+        want = fn(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+        got, want = ((got, want) if isinstance(got, tuple)
+                     else ((got,), (want,)))
+        err[stage] = (max(float((a.cpu() - b).abs().max())
+                          for a, b in zip(got, want)),
+                      max(float(a.abs().max()) for a in got))
+
+    bp, bq = card.fk(qpos)
+    cmp("fk", (bp, bq), cpu.fk, qpos)
+    p0 = bp.sum(1) * card.inv_nb
+    br = bp - p0[:, None]
+    S = card.kin.dof_subspaces(br, bq)
+    cmp("dof_subspaces", S, cpu.kin.dof_subspaces, br, bq)
+    u = card.kin.qvel_to_u(qvel, br)
+    V = card.body_velocities(S, u)
+    cmp("body_velocities", V, cpu.body_velocities, S, u)
+    I6 = card.spatial_inertia(br, bq)
+    cmp("spatial_inertia", I6, cpu.spatial_inertia, br, bq)
+    if card.sdf:
+        pts = card.probe_points(bp, bq)
+        cmp("_sdf_walls", card._sdf_walls(pts), cpu._sdf_walls, pts)
+    f_ext = card.contact_forces(bp, bq, V, p0)
+    cmp("contact_forces", f_ext, cpu.contact_forces, bp, bq, V, p0)
+    grav = card.gravity_torques(I6, S) if card.has_servo else None
+    if grav is not None:
+        cmp("gravity_torques", grav, cpu.gravity_torques, I6, S)
+    act = card.actuator_torques(ctrl, qpos, u, grav)
+    cmp("actuator_torques", act, cpu.actuator_torques, ctrl, qpos, u, grav)
+    bias = card.bias_forces(I6, S, V, u, f_ext)
+    cmp("bias_forces", bias, cpu.bias_forces, I6, S, V, u, f_ext)
+    M = card.crba(I6, S)
+    cmp("crba", M, cpu.crba, I6, S)
+    tau = act + card.passive_torques(qpos, u) - bias
+    cmp("chol_solve", chol_solve(M, tau), chol_solve, M, tau)
+    cmp("substep", card.substep(qpos, qvel, ctrl), cpu.substep, qpos, qvel,
+        ctrl)
+    return err
+
+
+def substep_walk(card: Engine, cpu: Engine, args, n: int, tol, what: str):
+    """The card's trajectory from `args` (qpos, qvel, ctrl on the card)
+    walked one substep at a time over `n` substeps: each substep stepped
+    on the card from the card's state and on the CPU from the same state
+    copied there, the two held to the one-substep bounds `tol`; the walk
+    carries on from the card's result. Beside it the CPU's own trajectory
+    from the same start, whose distance to the card's is the accumulated
+    error. On the first substep out of bound, logs `stage_errors` on its
+    state and raises. Returns (the curve, the card's end state, the CPU's
+    seconds)."""
+    qp, qv, ct = args
+    ct_cpu = ct.cpu()
+    own = (qp.cpu(), qv.cpu())
+    curve, cpu_s = [], 0.0
+    for k in range(1, n + 1):
+        nxt = card.step(qp, qv, ct)
+        here = (qp.cpu(), qv.cpu())
+        t0 = time.time()
+        ref = cpu.step(*here, ct_cpu)
+        own = cpu.step(*own, ct_cpu)
+        cpu_s += time.time() - t0
+        one = [float((a.cpu() - b).abs().max()) for a, b in zip(nxt, ref)]
+        acc = [float((a.cpu() - b).abs().max()) for a, b in zip(nxt, own)]
+        curve.append({"substep": k, "one": one, "accumulated": acc})
+        log("16 engine_cl", f"{what} substep {k}/{n}: one substep card vs "
+            f"CPU max|dqpos| {one[0]:.3g}, max|dqvel| {one[1]:.3g} (bounds "
+            f"{tol[0]:g}, {tol[1]:g}); accumulated {acc[0]:.3g}, "
+            f"{acc[1]:.3g}")
+        if one[0] > tol[0] or one[1] > tol[1]:
+            for stage, (e, mag) in stage_errors(card, cpu, qp, qv,
+                                                ct).items():
+                log("16 engine_cl", f"{what} substep {k}: stage {stage} "
+                    f"max|card - CPU| {e:.3g} (max|card| {mag:.3g})")
+            raise RuntimeError(f"engine_cl {what}: substep {k} of the walk "
+                               f"is out of the one-substep bounds: {one}")
+        qp, qv = nxt
+    return curve, (qp, qv), cpu_s
+
+
 def kernel_count(fn) -> int:
     """CUDA kernels one call of fn() launches (a torch.profiler window)."""
     fn()
@@ -2171,11 +2263,13 @@ def engine_cl_phase(smi: str, kernel_ms: dict) -> dict:
     step from the collect's last state and from the kernel's check
     states (the ant's random and wall batches, Panda's random one) eager,
     eager again and through its CUDA graph, all bitwise alike, against
-    the same step on the CPU: the check states held to the kernel's
-    bounds (the ant a control step and a substep, Panda a substep), the
-    rest reported; SDF contacts seen on the wall states; ms and kernels a
-    control step, eager and graphed, at 40 and 4096 envs beside the
-    substep kernel's ms (`kernel_ms`)."""
+    the same step on the CPU, walked a substep at a time
+    (`substep_walk`: every substep held to the kernel's one-substep bounds
+    from the card's own state, the walk's end bitwise the control step),
+    the ant's check states also held to its control-step bounds, the
+    other batches' control-step error reported; SDF contacts seen
+    on the wall states; ms and kernels a control step, eager and graphed,
+    at 40 and 4096 envs beside the substep kernel's ms (`kernel_ms`)."""
     cfg = Config()
     gen = torch.Generator(device="cuda").manual_seed(0)
     rec = {}
@@ -2201,13 +2295,14 @@ def engine_cl_phase(smi: str, kernel_ms: dict) -> dict:
         action = actor.act(obs)
         ctrl = action if name.startswith("antmaze") else \
             inner._ctrl_from_action(state.qpos, action)
-        # the kernel's own check states (phases 3, 3p, 11) are held to its
-        # bounds, one substep and (the ant) a control step; the collect's
-        # last state and Panda's 20 substeps are reported: the CPU rounds
-        # sin and cos and orders its sums otherwise than the card, which
-        # a chaotic contact or the kp = 2e4 servos amplify past the
-        # control-step bounds (the kernel's plain version on the card
-        # takes the kernel's own order)
+        # from every batch the card's control step is walked one substep
+        # at a time (`substep_walk`), each substep held to the one-substep
+        # bounds against the CPU from the same state; the ant's check
+        # states (phases 3, 11) are also held to the control-step bounds.
+        # The collect's last state and Panda's control step are reported
+        # there: the CPU rounds sin and cos and orders its sums otherwise
+        # than the card, and a chaotic contact or the kp = 2e4 servos
+        # amplify in-bound substeps past the control-step bounds
         batches = [("collected", (state.qpos, state.qvel,
                                   ctrl.contiguous()), False)]
         if name.startswith("antmaze"):
@@ -2223,23 +2318,25 @@ def engine_cl_phase(smi: str, kernel_ms: dict) -> dict:
         one = dataclasses.replace(inner.model, n_substeps=1)
         one_card, one_cpu = Engine(one, "cuda"), Engine(one, "cpu")
         tol1 = TOL[1] if name.startswith("antmaze") else PANDA_TOL[1]
+        n_sub = int(inner.model.n_substeps)
         gate_step = name.startswith("antmaze")
         r = {"collect_s": secs, "env_steps_per_s": NUM_ENVS * CL_STEPS / secs}
         for label, args, gated in batches:
-            if gated:
-                e = one_card.step(*args)
-                ref = one_cpu.step(*(t.cpu() for t in args))
-                err1 = [float((a.cpu() - b).abs().max())
-                        for a, b in zip(e, ref)]
-                r[f"{label}_one_substep_err"] = err1
-                log("16 engine_cl", f"{name} {label} B={NUM_ENVS}, one "
-                    f"substep: card vs CPU max|dqpos| {err1[0]:.3g}, "
-                    f"max|dqvel| {err1[1]:.3g} (bounds {tol1[0]:g}, "
-                    f"{tol1[1]:g})")
-                if err1[0] > tol1[0] or err1[1] > tol1[1]:
-                    raise RuntimeError(f"engine_cl {name} {label}: one "
-                                       f"substep {err1}")
+            curve, end, cpu_s = substep_walk(one_card, one_cpu, args, n_sub,
+                                             tol1, f"{name} {label} "
+                                             f"B={NUM_ENVS}")
             e1, e2 = eng.step(*args), eng.step(*args)
+            # the walk is the control step: the same substeps in turn
+            same = all(torch.equal(a, b) for a, b in zip(end, e1))
+            r[f"{label}_walk"] = {"envs": NUM_ENVS, "substeps": n_sub,
+                                  "bounds": list(tol1), "curve": curve,
+                                  "cpu_s": cpu_s, "is_the_step": same}
+            log("16 engine_cl", f"{name} {label}: walk of {n_sub} substeps "
+                f"over all {NUM_ENVS} envs in bound (CPU {cpu_s:.1f} s); "
+                f"its end bitwise the control step: {same}")
+            if not same:
+                raise RuntimeError(f"engine_cl {name} {label}: the walk is "
+                                   "not the control step")
             g = eng.graphed_step(*args)
             bitwise = all(torch.equal(a, b) for a, b in zip(e1, e2))
             graph_bitwise = all(torch.equal(a, b) for a, b in zip(e1, g))
@@ -2436,6 +2533,102 @@ def dp_phase(smi: str) -> dict:
         if recl and r0["num_groups"] < 3:
             raise RuntimeError(f"DP recluster found {r0['num_groups']} "
                                "groups, not two modes and explore")
+    return rec
+
+
+# ----------------------------------------------- 18. the last helpers
+
+WAYPOINT_MAZES = ("pointmaze-v1", "pointmaze-v2")
+WAYPOINT_ENVS = 16
+# quat.integrate on the card against the CPU: float32 sin, cos and square
+# roots of the two libraries differ by an ulp or two
+QUAT_TOL = 1e-6
+
+
+def dtw_float32_bound(la: np.ndarray, lb: np.ndarray, Dx: int) -> np.ndarray:
+    """Relative bound [P] of a float32 DTW distance against the exact one
+    on the same points: a terminal cell sums at most la + lb - 1 cell
+    costs of Dx squared differences, each op rounded once (unit 2^-24),
+    and the square root rounds once more."""
+    return (la.astype(np.float64) + lb + Dx + 2) * 2.0 ** -24
+
+
+def helpers_phase(smi: str, device: str = "cuda") -> dict:
+    """18: the port's last helpers on the card. The DTW kernel on phase
+    10a's pairs against the host's float64 `modes/_native.py:dtw_batch`
+    within float32 rounding (`dtw_float32_bound`); `physics/maze.py:
+    waypoint_policy` driving WAYPOINT_ENVS pointmaze envs on the card
+    toward each goal of WAYPOINT_MAZES over one episode, the action the
+    clipped offset to the next waypoint, every env to reach its goal;
+    `physics/quat.py:integrate` and `inv_rotate` on the card against the
+    CPU. (`device="cpu"` rehearses the phase without a card.)"""
+    rec = {}
+    args = dtw_inputs(5, 640, DTW_PAIRS, device)
+    got = dtw.dtw_batch_gather(*args).double().cpu().numpy()
+    stack, _, lens, _, ia, ib = (t.cpu().numpy() for t in args)
+    a, b = stack[ia].astype(np.float64), stack[ib].astype(np.float64)
+    la, lb = lens[ia], lens[ib]
+    t0 = time.time()
+    want = _native.dtw_batch(a, b, la, lb)
+    host_s = time.time() - t0
+    rel = np.abs(got - want) / np.maximum(want, 1e-30)
+    bound = dtw_float32_bound(la, lb, stack.shape[-1])
+    over = int((np.abs(got - want) > bound * want).sum())
+    rec["dtw_host"] = {"pairs": len(ia), "max_rel_err": float(rel.max()),
+                       "max_rel_bound": float(bound.max()),
+                       "pairs_over": over, "host_s": host_s}
+    log("18 helpers", f"DTW kernel vs the host float64 dtw_batch on "
+        f"{len(ia)} pairs: max relative {rel.max():.3e}, pairs over the "
+        f"float32 bound (up to {bound.max():.3e}) {over}; the host DTW "
+        f"{host_s:.2f} s [{smi}]")
+    if over:
+        raise RuntimeError(f"DTW kernel vs host: {rec['dtw_host']}")
+
+    for name in WAYPOINT_MAZES:
+        env = make(name, num_envs=WAYPOINT_ENVS, device=device, seed=0)
+        inner = env.env
+        rates = []
+        for g, gxy in enumerate(inner.goal_xy.tolist()):
+            policy = maze.waypoint_policy(inner.maze_map, gxy)
+            state, _ = env.reset()
+            reached = np.zeros(WAYPOINT_ENVS, bool)
+            ended = np.zeros(WAYPOINT_ENVS, bool)
+            for _ in range(inner.max_episode_steps):
+                xy = state.qpos.cpu().numpy().astype(np.float64)
+                wp = np.array([policy(tuple(p)) for p in xy])
+                action = torch.tensor(np.clip(wp - xy, -1.0, 1.0),
+                                      dtype=torch.float32, device=device)
+                state, _, _, done, info = env.step(state, action)
+                done = done.cpu().numpy()
+                first = done & ~ended
+                reached |= first & (info["success"].cpu().numpy() == g + 1)
+                ended |= done
+                if ended.all():
+                    break
+            rates.append(float(reached.mean()))
+        rec[name] = {"success_per_goal": rates,
+                     "goals": inner.goal_xy.tolist()}
+        log("18 helpers", f"{name}: waypoint_policy over {WAYPOINT_ENVS} "
+            f"envs on the card, success per goal {rates} (goals "
+            f"{inner.goal_xy.tolist()})")
+        if min(rates) < 1.0:
+            raise RuntimeError(f"{name}: a waypoint rollout missed its goal")
+
+    gen = torch.Generator().manual_seed(18)
+    q = torch.randn((NUM_ENVS, 4), generator=gen)
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    w = torch.randn((NUM_ENVS, 3), generator=gen) * 3.0
+    v = torch.randn((NUM_ENVS, 3), generator=gen)
+    err = {}
+    for what, fn in (("integrate", lambda q, w, v: Q.integrate(q, w, 0.01)),
+                     ("inv_rotate", lambda q, w, v: Q.inv_rotate(q, v))):
+        card = fn(q.to(device), w.to(device), v.to(device)).cpu()
+        err[what] = float((card - fn(q, w, v)).abs().max())
+    rec["quat"] = err
+    log("18 helpers", f"quat on the card vs the CPU at B={NUM_ENVS}: max "
+        f"|diff| {err} (bound {QUAT_TOL:g})")
+    if max(err.values()) > QUAT_TOL:
+        raise RuntimeError(f"quat card vs CPU: {err}")
     return rec
 
 
@@ -2725,6 +2918,10 @@ def main() -> int:
     parallel = dp_phase(smi)
     stamp("phase 17 (parallel)")
 
+    # ------------------------------------------------- 18. the last helpers
+    helpers = helpers_phase(smi)
+    stamp("phase 18 (helpers)")
+
     # device time of the new collect paths and the baselines' iterations,
     # after every timed phase
     device_split(*v3_split, "antmaze-v3", smi)
@@ -2743,6 +2940,7 @@ def main() -> int:
     print(json.dumps({"tools": {**tools, "card": smi}}))
     print(json.dumps({"engine_cl": {**engine_cl, "card": smi}}))
     print(json.dumps({"parallel": {**parallel, "card": smi}}))
+    print(json.dumps({"helpers": {**helpers, "card": smi}}))
     print(json.dumps({"kernels": [
         kernel_entry("substep_ant",
                      ant_launches + train_launches + loop_launches

@@ -15,7 +15,8 @@ NVIDIA card the physics substep runs as the hand-written CUDA kernel
 `csrc/substep.cu` and the recluster's DTW distances as `csrc/dtw.cu`; on
 the CPU both run their plain PyTorch versions.
 
-  config.py    — the configuration dataclasses, presets, preprocess (copy)
+  config.py    — the configuration dataclasses, presets, preprocess, the
+                 YAML loader (copy)
   physics/     — scene builders, kinematics, the substep (plain + CUDA kernel)
   envs/        — the antmaze, pointmaze and Panda batched envs, registry
   ops/         — DDPM, mode embeddings, noise, optax chains, C51 projection,
@@ -25,7 +26,7 @@ the CPU both run their plain PyTorch versions.
                  MLP policies, stacked and double critics, RND nets
   replay/      — the episodic trajectory store, the flat transition ring
   modes/       — DTW + average-linkage reclustering (`csrc/cluster.cpp` for
-                 the linkage), the Q-scheduler
+                 the linkage and a host float64 DTW), the Q-scheduler
   intrinsic.py — NovelD / RND rewards
   agents/      — DDiffPG (explore_actions, collect, AgentDDiffPG with
                  update_cluster), TD3, SAC, DIPO, DiffQ, eval rollouts,
@@ -36,4 +37,8 @@ the CPU both run their plain PyTorch versions.
   train.py     — the entry point: `python -m ddiffpg_tpu_torch.train`
 """
 
+from pathlib import Path
+
 __version__ = "0.1.0"
+
+LIB_PATH = Path(__file__).resolve().parent

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import warnings
 from typing import NamedTuple
 
 import torch
@@ -200,6 +201,12 @@ class AgentDDiffPG:
         gxy = getattr(inner, "goal_xy", None)
         self._goal_xy = None if gxy is None else gxy.to(self.device)
         self._frontier_goals = 1 if gxy is None else int(gxy.shape[0])
+        if a.obs_norm:
+            warnings.warn(
+                "algo.obs_norm=true with DDiffPG: acting/eval use normalized"
+                " obs but critic/actor updates train on RAW obs (faithful to"
+                " the reference, see _norm_obs) — a train/act distribution"
+                " mismatch that can silently degrade learning.")
 
     # ------------------------------------------------------------------ init
 

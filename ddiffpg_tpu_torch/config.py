@@ -4,8 +4,8 @@ Copy of the dataclasses of `ddiffpg_tpu/config.py` with field-identical
 defaults, its per-algorithm presets (`algo_preset`), its per-env
 `preprocess` and the dotted override helper, so that the port builds its
 agent from the same stock configuration without importing the JAX
-package, and its `override_strings` for the command line. The YAML loader
-is not copied yet.
+package, its `override_strings` for the command line and its YAML loader
+`load_yaml` (PyYAML is imported only when a file is loaded).
 """
 
 from __future__ import annotations
@@ -294,4 +294,32 @@ def preprocess(cfg: Config, if_ddiffpg: bool = True) -> Config:
             "algo.obs_norm=true with DDiffPG: actions/eval use normalized "
             "observations but updates train on raw observations (reference "
             "semantics). Learning may silently degrade.", stacklevel=2)
+    return cfg
+
+
+def load_yaml(path: str) -> Config:
+    """A Config from a YAML file of nested sections: the stock Config, with
+    the preset of `algo.name` when the file names one, then every leaf of
+    the file set by its dotted path."""
+    import yaml
+
+    with open(path) as f:
+        raw = yaml.safe_load(f) or {}
+
+    def flatten(d, prefix=""):
+        out = {}
+        for k, v in d.items():
+            kk = f"{prefix}{k}"
+            if isinstance(v, dict):
+                out.update(flatten(v, kk + "."))
+            else:
+                out[kk] = v
+        return out
+
+    cfg = Config()
+    algo_name = raw.get("algo", {}).get("name")
+    if algo_name:
+        cfg = dataclasses.replace(cfg, algo=algo_preset(algo_name))
+    for k, v in flatten(raw).items():
+        cfg = _replace_nested(cfg, k, v)
     return cfg

@@ -1,10 +1,13 @@
-// Average-linkage agglomerative clustering on the host, for the port's
-// recluster (ddiffpg_tpu_torch/modes/linkage.py). Copy of the JAX
-// package's runtime/cluster.cpp:linkage_average (that file's DTW is not
-// needed: the port computes distances with ops/dtw.py and csrc/dtw.cu).
-// O(N^2) nearest-neighbor-chain algorithm with the Lance-Williams average
-// update; merges sorted by height and relabeled like
-// scipy.cluster.hierarchy.linkage.
+// Host clustering kernels of the port, a copy of the JAX package's
+// runtime/cluster.cpp:
+//  - linkage_average, for the recluster (ddiffpg_tpu_torch/modes/
+//    linkage.py): O(N^2) nearest-neighbor-chain algorithm with the
+//    Lance-Williams average update; merges sorted by height and relabeled
+//    like scipy.cluster.hierarchy.linkage;
+//  - dtw_batch, a float64 DTW of materialised pairs on the host
+//    (modes/_native.py:dtw_batch). The recluster computes its distances
+//    with ops/dtw.py and, on a card, csrc/dtw.cu; this loop is their
+//    float64 reference.
 //
 // Built by modes/_native.py at first use:
 //   g++ -O3 -shared -fPIC csrc/cluster.cpp -o build/torch_ext/cluster_<hash>.so
@@ -92,6 +95,40 @@ int linkage_average(const double* dist, int n, double* Z) {
     Z[i * 4 + 1] = (double)std::max(c1, c2);
     Z[i * 4 + 2] = m.h;
     Z[i * 4 + 3] = m.s;
+  }
+  return 0;
+}
+
+// Multivariate DTW, dtaidistance dtw_ndim semantics: cell cost = squared
+// Euclidean distance, unconstrained warping, distance = sqrt(D[la][lb]).
+// a: [P, Lmax, D], b likewise; la, lb: per-pair valid lengths; out: [P].
+int dtw_batch(const double* a, const double* b, const int32_t* la,
+              const int32_t* lb, int P, int Lmax, int D, double* out) {
+  const double INF = 1e300;
+  std::vector<double> prev(Lmax + 1), cur(Lmax + 1);
+  for (int p = 0; p < P; ++p) {
+    const double* A = a + (size_t)p * Lmax * D;
+    const double* B = b + (size_t)p * Lmax * D;
+    int n = la[p], m_ = lb[p];
+    std::fill(prev.begin(), prev.end(), INF);
+    prev[0] = 0.0;
+    for (int i = 1; i <= n; ++i) {
+      cur[0] = INF;
+      const double* ai = A + (size_t)(i - 1) * D;
+      for (int j = 1; j <= m_; ++j) {
+        const double* bj = B + (size_t)(j - 1) * D;
+        double c = 0.0;
+        for (int d = 0; d < D; ++d) {
+          double t = ai[d] - bj[d];
+          c += t * t;
+        }
+        double m3 = std::min(prev[j], std::min(cur[j - 1], prev[j - 1]));
+        cur[j] = c + m3;
+      }
+      for (int j = m_ + 1; j <= Lmax; ++j) cur[j] = INF;
+      std::swap(prev, cur);
+    }
+    out[p] = std::sqrt(prev[m_]);
   }
   return 0;
 }

@@ -3,6 +3,7 @@
 Counterpart of `ddiffpg_tpu/envs/base.py`. The JAX `EnvState` carries a
 PRNG key per env for auto-reset draws; here the env draws its resets from a
 `torch.Generator` on its device, so the state is (qpos, qvel, t).
+`Transition` is the JAX package's record of a step's outputs.
 `pallas_step_padded` has no counterpart: the CUDA kernel masks its own
 tail, so eval batches (20 envs) and training batches (256 or 4096)
 integrate through the same kernel unpadded. `physics_of` and
@@ -12,7 +13,7 @@ integrate through the same kernel unpadded. `physics_of` and
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -23,6 +24,13 @@ class EnvState(NamedTuple):
     qpos: torch.Tensor      # [B, nq] float32
     qvel: torch.Tensor      # [B, nv] float32
     t: torch.Tensor         # [B] int32 step count within the episode
+
+
+class Transition(NamedTuple):
+    obs: torch.Tensor
+    reward: torch.Tensor
+    done: torch.Tensor      # terminated | truncated (after auto-reset)
+    info: Dict[str, torch.Tensor]  # 'success' (int32), 'time_outs' (bool)
 
 
 class VecEnv:

@@ -1,4 +1,5 @@
-"""ctypes binding to the host linkage kernel (`csrc/cluster.cpp`).
+"""ctypes binding to the host clustering kernels (`csrc/cluster.cpp`):
+the average linkage and a float64 DTW of materialised pairs.
 
 Counterpart of `ddiffpg_tpu/modes/_native.py`. The library is built with
 `g++` at first use, from the source in this package only, into
@@ -40,8 +41,18 @@ def _load():
         lib.linkage_average.argtypes = [
             ctypes.POINTER(ctypes.c_double), ctypes.c_int,
             ctypes.POINTER(ctypes.c_double)]
+        lib.dtw_batch.restype = ctypes.c_int
+        lib.dtw_batch.argtypes = [
+            ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
+            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_double)]
         _LIB = lib
     return _LIB
+
+
+def _ptr(a: np.ndarray, typ):
+    return a.ctypes.data_as(ctypes.POINTER(typ))
 
 
 def linkage_average(dist: np.ndarray) -> np.ndarray:
@@ -52,9 +63,35 @@ def linkage_average(dist: np.ndarray) -> np.ndarray:
         return np.zeros((0, 4))
     d = np.ascontiguousarray(dist, np.float64)
     Z = np.zeros((n - 1, 4), np.float64)
-    ptr = lambda a: a.ctypes.data_as(  # noqa: E731
-        ctypes.POINTER(ctypes.c_double))
-    rc = lib.linkage_average(ptr(d), n, ptr(Z))
+    rc = lib.linkage_average(_ptr(d, ctypes.c_double), n,
+                             _ptr(Z, ctypes.c_double))
     if rc != 0:
         raise RuntimeError(f"linkage_average failed rc={rc}")
     return Z
+
+
+def dtw_batch(a: np.ndarray, b: np.ndarray, la: np.ndarray,
+              lb: np.ndarray) -> np.ndarray:
+    """DTW distances [P] of materialised pairs in float64 on the host:
+    a, b [P, L, Dx], la, lb [P] valid lengths (dtaidistance's dtw_ndim:
+    squared Euclidean cell cost, unconstrained warping)."""
+    lib = _load()
+    if a.ndim != 3 or b.shape != a.shape:
+        raise ValueError(f"a {a.shape} and b {b.shape}: want [P, L, Dx] "
+                         "of one shape")
+    P, Lmax, D = a.shape
+    for name, n in (("la", la), ("lb", lb)):
+        if np.shape(n) != (P,) or (P and not (
+                0 <= np.min(n) and np.max(n) <= Lmax)):
+            raise ValueError(f"{name}: want {P} lengths in 0..{Lmax}")
+    a = np.ascontiguousarray(a, np.float64)
+    b = np.ascontiguousarray(b, np.float64)
+    la = np.ascontiguousarray(la, np.int32)
+    lb = np.ascontiguousarray(lb, np.int32)
+    out = np.zeros(P, np.float64)
+    rc = lib.dtw_batch(_ptr(a, ctypes.c_double), _ptr(b, ctypes.c_double),
+                       _ptr(la, ctypes.c_int32), _ptr(lb, ctypes.c_int32),
+                       P, Lmax, D, _ptr(out, ctypes.c_double))
+    if rc != 0:
+        raise RuntimeError(f"dtw_batch failed rc={rc}")
+    return out

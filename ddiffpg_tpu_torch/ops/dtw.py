@@ -140,6 +140,14 @@ def dtw_batch(a: torch.Tensor, b: torch.Tensor, len_a: torch.Tensor,
     return dtw_batch_gather(a, b, len_a, len_b, idx, idx)
 
 
+def dtw_pair(a: torch.Tensor, b: torch.Tensor, len_a, len_b) -> torch.Tensor:
+    """The DTW distance (a 0-d tensor) between a[:len_a] and b[:len_b];
+    a, b [L, Dx]: `dtw_batch` of one pair."""
+    lens = [torch.as_tensor(n, dtype=torch.int32, device=a.device).reshape(1)
+            for n in (len_a, len_b)]
+    return dtw_batch(a[None].contiguous(), b[None].contiguous(), *lens)[0]
+
+
 def dtw_numpy(a, b) -> float:
     """O(L^2) reference DP in float64 numpy (the tests' oracle)."""
     n, m = len(a), len(b)

@@ -13,6 +13,15 @@ from __future__ import annotations
 import torch
 
 
+def generate_embedding(dim: int, *, generator: torch.Generator,
+                       device: str | torch.device | None = None
+                       ) -> torch.Tensor:
+    """A random N(0, 1) mode id [dim] (the reference's torch_util.py:14-15),
+    drawn from `generator` on its device unless `device` is given."""
+    return torch.randn((dim,), generator=generator,
+                       device=generator.device if device is None else device)
+
+
 def add_embedding(state: torch.Tensor, embedding: torch.Tensor, p,
                   modes: torch.Tensor | None = None, num_modes=0, *,
                   generator: torch.Generator | None = None,

@@ -11,6 +11,26 @@ from __future__ import annotations
 import torch
 
 
+class FixedNormalActionNoise:
+    """Stateless N(mean, std) action-noise sampler with optional truncation
+    (the reference's utils/noise.py:5-16); a call draws from `generator`
+    where the JAX sampler takes a key."""
+
+    def __init__(self, mean, std, bounds=None):
+        self.mean = mean
+        self.std = std
+        self.bounds = bounds
+
+    def __call__(self, generator: torch.Generator, shape=(),
+                 truncated: bool = False) -> torch.Tensor:
+        """A draw of `shape` from `generator`, on its device."""
+        s = torch.randn(shape, generator=generator,
+                        device=generator.device) * self.std + self.mean
+        if truncated and self.bounds is not None:
+            s = torch.clamp(s, self.bounds[0], self.bounds[1])
+        return s
+
+
 def _normal(x, noise, generator):
     if noise is None:
         return torch.randn(x.shape, generator=generator, device=x.device,

@@ -10,6 +10,10 @@ from __future__ import annotations
 import torch
 
 
+def posenc_dim(input_dims: int, L: int, include_input: bool = True) -> int:
+    return input_dims * ((1 if include_input else 0) + 2 * L)
+
+
 def posenc(x: torch.Tensor, L: int, include_input: bool = True):
     """x [..., d] -> [..., d (include + 2L)]: x, sin f0 x, cos f0 x, ..."""
     freqs = 2.0 ** torch.arange(L, dtype=x.dtype, device=x.device)   # [L]

@@ -48,6 +48,11 @@ def normalize(rms: RunningMeanStd, x: torch.Tensor,
     return (x - rms.mean) / torch.sqrt(rms.var + epsilon)
 
 
+def unnormalize(rms: RunningMeanStd, x: torch.Tensor,
+                epsilon: float = 1e-4) -> torch.Tensor:
+    return x * torch.sqrt(rms.var + epsilon) + rms.mean
+
+
 def where(cond: torch.Tensor, a: RunningMeanStd,
           b: RunningMeanStd) -> RunningMeanStd:
     """a where the scalar bool tensor `cond` holds, else b (no host sync)."""

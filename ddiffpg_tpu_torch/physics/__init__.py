@@ -2,6 +2,7 @@
 
   types.py, builder.py          — numpy scene builders (jax-free copies)
   ant.py, panda.py, maze.py     — the ant, the Panda scenes, the maze tables
+                                  and grid navigation
   quat.py, engine.py            — quaternions and batched kinematics (FK,
                                   subspaces, body velocities)
   substep.py                    — model check, constants, plain substep

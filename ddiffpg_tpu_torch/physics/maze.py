@@ -1,10 +1,11 @@
 """Maze grid specs and scene compilation (numpy only).
 
-Copy of the tables and compilers of `ddiffpg_tpu/physics/maze.py` that the
-port uses: `MAZES`, `GOALS`, `EPISODE_LEN`, `compile_boxes` and
-`compile_sdf`. Grid layouts match the reference's single/multi-goal mazes;
-wall cells compile to static AABBs, offset so the robot reset cell ('r') is
-the world origin.
+Copy of `ddiffpg_tpu/physics/maze.py`: the tables `MAZES`, `GOALS` and
+`EPISODE_LEN`, the scene compilers `compile_boxes` and `compile_sdf`, and
+the grid navigation helpers `free_cells`, `xy_to_rowcol`, `bfs_next_cell`
+and `waypoint_policy` (plain Python on the host). Grid layouts match the
+reference's single/multi-goal mazes; wall cells compile to static AABBs,
+offset so the robot reset cell ('r') is the world origin.
 """
 
 from __future__ import annotations
@@ -89,6 +90,71 @@ def find_reset(maze_map):
             if c == R:
                 return i, j
     raise ValueError("no reset cell")
+
+
+def free_cells(maze_map):
+    """(row, col) of every non-wall cell."""
+    return [(i, j) for i, row in enumerate(maze_map)
+            for j, c in enumerate(row) if c != 1]
+
+
+def xy_to_rowcol(xy, maze_map, size_scaling: float = 4.0):
+    """World xy -> grid cell, with the reset-cell origin offset
+    (reference maze_env.py:324-328 semantics)."""
+    ri, rj = find_reset(maze_map)
+    col = int(round((xy[0] + rj * size_scaling) / size_scaling))
+    row = int(round((xy[1] + ri * size_scaling) / size_scaling))
+    return row, col
+
+
+def bfs_next_cell(maze_map, current, target):
+    """Shortest-path BFS waypoint: the next cell to move to from `current`
+    toward `target` (reference maze_env.py:433-467 `_get_best_next_rowcol`).
+    Returns `target` when adjacent or equal."""
+    current, target = tuple(current), tuple(target)
+    if current == target:
+        return target
+    visited = set()
+    frontier = [target]
+    while frontier:
+        nxt = []
+        for cell in frontier:
+            visited.add(cell)
+            r, c = cell
+            for nb in ((r, c - 1), (r, c + 1), (r + 1, c), (r - 1, c)):
+                if nb == current:
+                    return cell
+                rr, cc = nb
+                if not (0 <= rr < len(maze_map)
+                        and 0 <= cc < len(maze_map[0])):
+                    continue
+                if maze_map[rr][cc] == 1 or nb in visited:
+                    continue
+                nxt.append(nb)
+        frontier = nxt
+    raise ValueError("no path found to target")
+
+
+def waypoint_policy(maze_map, goal_xy, size_scaling: float = 4.0):
+    """Host-side navigation helper: maps an xy position to the next
+    waypoint xy along the BFS shortest path to `goal_xy` (the engine-free
+    analog of maze_env.create_navigation_policy, maze_env.py:469-504)."""
+    ri, rj = find_reset(maze_map)
+
+    def rowcol_to_xy(rc):
+        r, c = rc
+        return (c * size_scaling - rj * size_scaling,
+                r * size_scaling - ri * size_scaling)
+
+    def next_waypoint(xy):
+        cur = xy_to_rowcol(xy, maze_map, size_scaling)
+        tgt = xy_to_rowcol(goal_xy, maze_map, size_scaling)
+        wp = bfs_next_cell(maze_map, cur, tgt)
+        if wp == tgt:
+            return tuple(goal_xy)
+        return rowcol_to_xy(wp)
+
+    return next_waypoint
 
 
 def compile_boxes(maze_map, size_scaling: float = 4.0, height: float = 0.5):
