@@ -41,7 +41,7 @@ from ddiffpg_tpu_torch.ops.noise import (add_mixed_normal_noise,
                                          add_normal_noise)
 from ddiffpg_tpu_torch.physics import maze
 from ddiffpg_tpu_torch.replay import episodic as ep
-from ddiffpg_tpu_torch.utils import density
+from ddiffpg_tpu_torch.utils import density, trace
 
 
 def explore_actions(policy, obs: torch.Tensor, p, embeddings: torch.Tensor,
@@ -62,16 +62,19 @@ def explore_actions(policy, obs: torch.Tensor, p, embeddings: torch.Tensor,
     The random draws — `zero_mask` [B], `x_init` [B, A], `step_noise`
     [K, B, A], `action_noise` [B, A] — come from `generator` unless given.
     """
-    emb_obs = add_embedding(obs, embeddings[0], p, embeddings[1:], num_modes,
-                            generator=generator, zero_mask=zero_mask)
-    action = policy.act(emb_obs, generator=generator, x_init=x_init,
-                        noise=step_noise)
-    if noise_type == "mixed":
-        return add_mixed_normal_noise(action, std_min, std_max,
-                                      out_bounds=(-1.0, 1.0),
-                                      generator=generator, noise=action_noise)
-    return add_normal_noise(action, std_max, out_bounds=(-1.0, 1.0),
-                            generator=generator, noise=action_noise)
+    with trace.span("actor"):
+        emb_obs = add_embedding(obs, embeddings[0], p, embeddings[1:],
+                                num_modes, generator=generator,
+                                zero_mask=zero_mask)
+        action = policy.act(emb_obs, generator=generator, x_init=x_init,
+                            noise=step_noise)
+        if noise_type == "mixed":
+            return add_mixed_normal_noise(action, std_min, std_max,
+                                          out_bounds=(-1.0, 1.0),
+                                          generator=generator,
+                                          noise=action_noise)
+        return add_normal_noise(action, std_max, out_bounds=(-1.0, 1.0),
+                                generator=generator, noise=action_noise)
 
 
 class Rollout(NamedTuple):
@@ -94,9 +97,10 @@ def collect(env, policy, state, obs: torch.Tensor, n_steps: int, p,
     """
     rec = {k: [] for k in Rollout._fields}
     for _ in range(n_steps):
-        action = explore_actions(policy, obs, p, embeddings, num_modes,
-                                 std_min, std_max, generator=generator)
-        state, obs, reward, done, info = env.step(state, action)
+        with trace.span("collect_step"):
+            action = explore_actions(policy, obs, p, embeddings, num_modes,
+                                     std_min, std_max, generator=generator)
+            state, obs, reward, done, info = env.step(state, action)
         for k, v in (("action", action), ("obs", obs), ("reward", reward),
                      ("done", done), ("success", info["success"])):
             rec[k].append(v)
@@ -258,44 +262,46 @@ class AgentDDiffPG:
         return base.norm_obs(self.cfg, ts.obs_rms, obs)
 
     def _env_step(self, ts: DDiffPGState, p, random: bool) -> DDiffPGState:
-        a = self.cfg.algo
-        E, A = self.env.num_envs, self.action_dim
-        if a.obs_norm and ts.obs_rms is not None:
-            ts = dataclasses.replace(
-                ts, obs_rms=base.update_rms(ts.obs_rms, ts.obs))
-        if random:
-            action = torch.rand((E, A), generator=self.generator,
-                                device=self.device) * 2.0 - 1.0
-        else:
-            num_modes = max(self.num_groups - 1, 0) if (
-                a.exp.mode_embedding and a.use_embedding) else 0
-            action = explore_actions(
-                ts.actor, self._norm_obs(ts, ts.obs), p, ts.embeddings,
-                num_modes, a.noise.std_min, a.noise.std_max,
-                noise_type=a.noise.type, generator=self.generator)
-        env_state, next_obs, reward, done, info = self.env.step(
-            ts.env_state, action)
-        stats = base.update_stats(ts.stats, reward, done)
-        done = done.to(torch.bool)
-        done_b = done ^ info["time_outs"] if a.handle_timeout else done
+        with trace.span("env_step"):
+            a = self.cfg.algo
+            E, A = self.env.num_envs, self.action_dim
+            if a.obs_norm and ts.obs_rms is not None:
+                ts = dataclasses.replace(
+                    ts, obs_rms=base.update_rms(ts.obs_rms, ts.obs))
+            if random:
+                action = torch.rand((E, A), generator=self.generator,
+                                    device=self.device) * 2.0 - 1.0
+            else:
+                num_modes = max(self.num_groups - 1, 0) if (
+                    a.exp.mode_embedding and a.use_embedding) else 0
+                action = explore_actions(
+                    ts.actor, self._norm_obs(ts, ts.obs), p, ts.embeddings,
+                    num_modes, a.noise.std_min, a.noise.std_max,
+                    noise_type=a.noise.type, generator=self.generator)
+            env_state, next_obs, reward, done, info = self.env.step(
+                ts.env_state, action)
+            stats = base.update_stats(ts.stats, reward, done)
+            done = done.to(torch.bool)
+            done_b = done ^ info["time_outs"] if a.handle_timeout else done
 
-        grid = ts.density_grid
-        if self._maze_map is not None:
-            grid = density.update(grid, ts.obs[:, :2], 4.0,
-                                  self._density_reset, len(self._maze_map))
-        if self._goal_xy is not None:
-            goal_dist = torch.linalg.vector_norm(
-                next_obs[:, None, :2] - self._goal_xy[None], dim=-1)
-        else:
-            goal_dist = -torch.linalg.vector_norm(
-                next_obs[:, :_pos_dim(self.cfg.env.name)], dim=-1,
-                keepdim=True)
-        ep.add(ts.replay, ts.obs, action, reward * a.reward_scale, next_obs,
-               done_b, done, info["success"], goal_dist=goal_dist,
-               frontier_keep=a.frontier_keep)
-        return dataclasses.replace(
-            ts, env_state=env_state, obs=next_obs, stats=stats,
-            global_step=ts.global_step + E, density_grid=grid)
+            grid = ts.density_grid
+            if self._maze_map is not None:
+                grid = density.update(grid, ts.obs[:, :2], 4.0,
+                                      self._density_reset,
+                                      len(self._maze_map))
+            if self._goal_xy is not None:
+                goal_dist = torch.linalg.vector_norm(
+                    next_obs[:, None, :2] - self._goal_xy[None], dim=-1)
+            else:
+                goal_dist = -torch.linalg.vector_norm(
+                    next_obs[:, :_pos_dim(self.cfg.env.name)], dim=-1,
+                    keepdim=True)
+            ep.add(ts.replay, ts.obs, action, reward * a.reward_scale,
+                   next_obs, done_b, done, info["success"],
+                   goal_dist=goal_dist, frontier_keep=a.frontier_keep)
+            return dataclasses.replace(
+                ts, env_state=env_state, obs=next_obs, stats=stats,
+                global_step=ts.global_step + E, density_grid=grid)
 
     def warmup(self, ts: DDiffPGState) -> DDiffPGState:
         """`algo.warm_up` env steps with uniform random actions."""
@@ -343,114 +349,116 @@ class AgentDDiffPG:
         embeddings, target actions from the old actor, critic update of
         rows :G and their soft targets, the action gradient on the updated
         critics, the target-action scatter, actor distillation, the RND
-        update. The draws come from `draw_update` unless given. `mark`,
-        when given, is called with each part's name as the part ends (a
-        timing hook). Returns (state, logs of 0-d tensors)."""
+        update. The draws come from `draw_update` unless given. The pass
+        is the span `update_pass`, each part a span of its own; `mark`, when
+        given, is called with each part's name as its span ends (a timing
+        hook). Returns (state, logs of 0-d tensors)."""
         G = self.num_groups if G is None else G
         a = self.cfg.algo
         b, A, E = a.batch_size // G, self.action_dim, self.embed_dim
         dev = self.device
-        d = draws or self.draw_update(ts, G)
-        mark = mark or (lambda part: None)
+        with trace.span("update_pass"):
+            # --- sample every group; stack to [G, b, ...] -------------------
+            with trace.part("sample", mark):
+                d = draws or self.draw_update(ts, G)
+                gbs = [ep.sample_group(
+                    ts.replay, i, b, mix_temp=(i == 0),
+                    success_frac=a.success_bias,
+                    frontier_frac=a.frontier_frac,
+                    frontier_keep=a.frontier_keep,
+                    frontier_frac_near=a.frontier_frac_near,
+                    frontier_near_dist=a.frontier_near_dist, u=d.u[i],
+                    u_success=None if d.u_success is None
+                    else d.u_success[i],
+                    u_frontier=d.u_frontier)
+                    for i in range(G)]
+                gb = ep.GroupBatch(*(torch.stack(x) for x in zip(*gbs)))
+            flat = lambda x: x.reshape((G * b,) + x.shape[2:])  # noqa: E731
 
-        # --- sample every group; stack to [G, b, ...] -----------------------
-        gbs = [ep.sample_group(
-            ts.replay, i, b, mix_temp=(i == 0), success_frac=a.success_bias,
-            frontier_frac=a.frontier_frac, frontier_keep=a.frontier_keep,
-            frontier_frac_near=a.frontier_frac_near,
-            frontier_near_dist=a.frontier_near_dist, u=d.u[i],
-            u_success=None if d.u_success is None else d.u_success[i],
-            u_frontier=d.u_frontier)
-            for i in range(G)]
-        gb = ep.GroupBatch(*(torch.stack(x) for x in zip(*gbs)))
-        flat = lambda x: x.reshape((G * b,) + x.shape[2:])  # noqa: E731
-        mark("sample")
+            with trace.part("NovelD reward", mark):
+                r_int, intr = self.intrinsic.compute_reward(
+                    ts.intrinsic, flat(gb.obs), flat(gb.next_obs))
+                r_int_g = r_int.reshape(G, b, 1)
+                explore = torch.arange(G, device=dev) == 0
+                # the explore group trains on the intrinsic reward only
+                reward = torch.where(explore[:, None, None], r_int_g,
+                                     gb.reward + r_int_g)
 
-        r_int, intr = self.intrinsic.compute_reward(
-            ts.intrinsic, flat(gb.obs), flat(gb.next_obs))
-        r_int_g = r_int.reshape(G, b, 1)
-        explore = torch.arange(G, device=dev) == 0
-        # the explore group trains on the intrinsic reward only
-        reward = torch.where(explore[:, None, None], r_int_g,
-                             gb.reward + r_int_g)
-        mark("NovelD reward")
+            with trace.part("target actions", mark):
+                # per-group conditioning embeddings
+                if a.use_embedding:
+                    emb_g = ts.embeddings[:G]
+                else:
+                    emb_g = torch.zeros((G, E), device=dev)
+                    emb_g[0] = ts.embeddings[0]
+                # mode groups: a random half of the rows gets the zero
+                # embedding, drawn apart for states and next states
+                drop = d.emb_masks & ~explore.repeat(2)[:, None]
 
-        # --- per-group conditioning embeddings ------------------------------
-        if a.use_embedding:
-            emb_g = ts.embeddings[:G]
-        else:
-            emb_g = torch.zeros((G, E), device=dev)
-            emb_g[0] = ts.embeddings[0]
-        # mode groups: a random half of the rows gets the zero embedding,
-        # drawn apart for states and next states
-        drop = d.emb_masks & ~explore.repeat(2)[:, None]
+                def embed(obs, m):
+                    rows = torch.where(m[..., None], 0.0, emb_g[:, None]
+                                       .expand(G, b, E))
+                    return torch.cat([obs, rows], dim=-1)
 
-        def embed(obs, m):
-            rows = torch.where(m[..., None], 0.0, emb_g[:, None].expand(
-                G, b, E))
-            return torch.cat([obs, rows], dim=-1)
+                emb_state = embed(gb.obs, drop[:G])
+                emb_next = embed(gb.next_obs, drop[G:])
+                # target-policy actions on all groups in one actor call
+                next_actions = base.tgt_policy_action(
+                    ts.actor, emb_next.reshape(G * b, -1), a.noise,
+                    draws=d.target).reshape(G, b, A)
 
-        emb_state = embed(gb.obs, drop[:G])
-        emb_next = embed(gb.next_obs, drop[G:])
+            with trace.part("critic update", mark):
+                # per-group C51 support: the explore critic keeps its own
+                vmin = torch.full((G, 1, 1), a.v_min, device=dev)
+                vmax = torch.full((G, 1, 1), a.v_max, device=dev)
+                vmin[0], vmax[0] = a.v_min_explore, a.v_max_explore
+                unit = torch.linspace(0.0, 1.0, a.num_atoms, device=dev)
+                z = vmin + (vmax - vmin) * unit               # [G, 1, atoms]
+                c_loss = base.distributional_critic_loss(
+                    ts.critics, ts.critic_targets, z, gb.obs, gb.action,
+                    reward, gb.next_obs, next_actions, gb.done,
+                    a.gamma ** a.nstep, vmin, vmax, a.num_atoms)
+                params = ts.critics.params()
+                grads = torch.autograd.grad(c_loss.sum(), params)
+                c_gn = optim.apply_update(params, grads, ts.critic_opts,
+                                          self.critic_spec, G=G)
+                base.soft_update([t[:G] for t in ts.critic_targets.params()],
+                                 [p[:G] for p in params], a.tau)
+                c_loss = c_loss.detach()
 
-        # --- target-policy actions on all groups in one actor call ----------
-        next_actions = base.tgt_policy_action(
-            ts.actor, emb_next.reshape(G * b, -1), a.noise,
-            draws=d.target).reshape(G, b, A)
-        mark("target actions")
+            with trace.part("action gradient", mark):
+                # on the updated critics, then the scatter
+                new_action = base.action_gradient(
+                    lambda act: q_min(ts.critics, z, gb.obs, act),
+                    gb.target_action, n_steps=self.cfg.diffusion.update_times,
+                    lr=self.cfg.diffusion.action_lr,
+                    max_grad_norm=a.max_grad_norm)
+                g_idx = torch.arange(G, device=dev).repeat_interleave(b)
+                ep.write_target_actions(ts.replay, g_idx, flat(gb.slot),
+                                        flat(gb.step), flat(gb.from_buffer),
+                                        new_action.reshape(-1, A))
 
-        # --- critic update on rows :G ---------------------------------------
-        # per-group C51 support: the explore critic keeps its own
-        vmin = torch.full((G, 1, 1), a.v_min, device=dev)
-        vmax = torch.full((G, 1, 1), a.v_max, device=dev)
-        vmin[0], vmax[0] = a.v_min_explore, a.v_max_explore
-        unit = torch.linspace(0.0, 1.0, a.num_atoms, device=dev)
-        z = vmin + (vmax - vmin) * unit                       # [G, 1, atoms]
-        c_loss = base.distributional_critic_loss(
-            ts.critics, ts.critic_targets, z, gb.obs, gb.action, reward,
-            gb.next_obs, next_actions, gb.done, a.gamma ** a.nstep, vmin,
-            vmax, a.num_atoms)
-        params = ts.critics.params()
-        grads = torch.autograd.grad(c_loss.sum(), params)
-        c_gn = optim.apply_update(params, grads, ts.critic_opts,
-                                  self.critic_spec, G=G)
-        base.soft_update([t[:G] for t in ts.critic_targets.params()],
-                         [p[:G] for p in params], a.tau)
-        c_loss = c_loss.detach()
-        mark("critic update")
+            with trace.part("actor loss and step", mark):
+                # distillation over all groups
+                tgt_actions = new_action.reshape(G * b, A)
+                a_loss = ts.actor.loss(emb_state.reshape(G * b, -1),
+                                       tgt_actions, noise=d.loss_noise,
+                                       t=d.loss_t)
+                aparams = list(ts.actor.parameters())
+                a_gn = optim.apply_update(
+                    aparams, torch.autograd.grad(a_loss, aparams),
+                    ts.actor_opt, self.actor_spec)
 
-        # --- action gradient on the updated critics, then the scatter -------
-        new_action = base.action_gradient(
-            lambda act: q_min(ts.critics, z, gb.obs, act), gb.target_action,
-            n_steps=self.cfg.diffusion.update_times,
-            lr=self.cfg.diffusion.action_lr, max_grad_norm=a.max_grad_norm)
-        g_idx = torch.arange(G, device=dev).repeat_interleave(b)
-        ep.write_target_actions(ts.replay, g_idx, flat(gb.slot),
-                                flat(gb.step), flat(gb.from_buffer),
-                                new_action.reshape(-1, A))
-        mark("action gradient")
+            with trace.part("RND update", mark):
+                obs_cat = flat(gb.obs)
+                if self.cfg.intrinsic.type == "noveld":
+                    obs_cat = torch.cat([obs_cat, flat(gb.next_obs)])
+                intr, d_loss, d_gn = self.intrinsic.update(intr, obs_cat)
 
-        # --- actor distillation over all groups -----------------------------
-        tgt_actions = new_action.reshape(G * b, A)
-        a_loss = ts.actor.loss(emb_state.reshape(G * b, -1), tgt_actions,
-                               noise=d.loss_noise, t=d.loss_t)
-        aparams = list(ts.actor.parameters())
-        a_gn = optim.apply_update(aparams,
-                                  torch.autograd.grad(a_loss, aparams),
-                                  ts.actor_opt, self.actor_spec)
-        mark("actor loss and step")
-
-        # --- RND update ----------------------------------------------------
-        obs_cat = flat(gb.obs)
-        if self.cfg.intrinsic.type == "noveld":
-            obs_cat = torch.cat([obs_cat, flat(gb.next_obs)])
-        intr, d_loss, d_gn = self.intrinsic.update(intr, obs_cat)
-        mark("RND update")
-
-        # the explore row's Q on its own atoms
-        with torch.no_grad():
-            q_explore = q_min(ts.critics, z[:1], gb.obs[:1],
-                              gb.action[:1]).mean()
+            # the explore row's Q on its own atoms
+            with torch.no_grad():
+                q_explore = q_min(ts.critics, z[:1], gb.obs[:1],
+                                  gb.action[:1]).mean()
         logs = {
             "train/critic_loss": c_loss.mean(),
             "train/critic_loss_explore": c_loss[0],
@@ -469,30 +477,31 @@ class AgentDDiffPG:
         """`horizon_len` explore env steps, then `update_times` update
         passes. Pass the host-tracked `steps` when known: reading
         `ts.global_step` waits on the device."""
-        G = self.num_groups
-        p = self.get_exp_p(int(ts.global_step) if steps is None else steps)
-        for _ in range(self.cfg.algo.horizon_len):
-            ts = self._env_step(ts, p, random=False)
-        passes = []
-        for _ in range(self.cfg.algo.update_times):
-            ts, logs = self.update_once(ts, G)
-            passes.append(logs)
-        logs = {k: torch.stack([lg[k] for lg in passes]).mean()
-                for k in passes[0]}
-        logs["train/return"] = ts.stats.return_tracker.mean()
-        logs["train/episode_length"] = ts.stats.step_tracker.mean()
-        logs["train/p"] = torch.tensor(float(p))
-        logs["train/num_groups"] = torch.tensor(float(G))
-        logs["train/frontier_dist"] = ep.frontier_dist(ts.replay)
-        if self._maze_map is not None:
-            grid = ts.density_grid
-            if base.dp_group() is not None:
-                # across ranks the grids are averaged: counts become
-                # fractional, and > 0 still marks any rank's visit
-                grid = base.maybe_pmean(grid.to(torch.float32))
-            logs["train/state_coverage"] = density.coverage(
-                grid, self._num_free)
-        return ts, logs
+        with trace.span("train_step"):
+            G = self.num_groups
+            p = self.get_exp_p(int(ts.global_step) if steps is None else steps)
+            for _ in range(self.cfg.algo.horizon_len):
+                ts = self._env_step(ts, p, random=False)
+            passes = []
+            for _ in range(self.cfg.algo.update_times):
+                ts, logs = self.update_once(ts, G)
+                passes.append(logs)
+            logs = {k: torch.stack([lg[k] for lg in passes]).mean()
+                    for k in passes[0]}
+            logs["train/return"] = ts.stats.return_tracker.mean()
+            logs["train/episode_length"] = ts.stats.step_tracker.mean()
+            logs["train/p"] = torch.tensor(float(p))
+            logs["train/num_groups"] = torch.tensor(float(G))
+            logs["train/frontier_dist"] = ep.frontier_dist(ts.replay)
+            if self._maze_map is not None:
+                grid = ts.density_grid
+                if base.dp_group() is not None:
+                    # across ranks the grids are averaged: counts become
+                    # fractional, and > 0 still marks any rank's visit
+                    grid = base.maybe_pmean(grid.to(torch.float32))
+                logs["train/state_coverage"] = density.coverage(
+                    grid, self._num_free)
+            return ts, logs
 
     # ------------------------------------------------------- explore ratio p
 

@@ -22,6 +22,7 @@ from ddiffpg_tpu_torch.models.diffusion import DiffusionPolicy
 from ddiffpg_tpu_torch.models.mlp import q_min
 from ddiffpg_tpu_torch.ops import optim
 from ddiffpg_tpu_torch.replay import flat
+from ddiffpg_tpu_torch.utils import trace
 
 
 class AgentDIPO(AgentTD3):
@@ -52,36 +53,39 @@ class AgentDIPO(AgentTD3):
         (`ddiffpg_tpu/agents/dipo.py:44-99`):
         sample, critic, RND on normalised obs, the action gradient on the
         sampled target actions and their write-back, the distillation,
-        soft targets."""
+        soft targets; each part a span, `mark` as in TD3's."""
         dcfg = self.cfg.diffusion
-        d = draws or self.draw_update(ts)
-        mark = mark or (lambda part: None)
-        batch, idx = flat.sample(ts.replay, len(d.idx), idx=d.idx)
-        obs, _, target_action, _, next_obs, _ = batch
-        mark("sample")
-        intr, c_loss, c_gn, r_int = self._critic_update(ts, batch, d.target)
-        mark("critic update")
-        # everything below sees normalised obs, as in the JAX agent
-        n_obs, n_next = self._norm_obs(ts, obs), self._norm_obs(ts, next_obs)
-        intr, d_loss, d_gn = self._rnd_update(intr, n_obs, n_next)
-        mark("RND update")
+        with trace.part("sample", mark):
+            d = draws or self.draw_update(ts)
+            batch, idx = flat.sample(ts.replay, len(d.idx), idx=d.idx)
+            obs, _, target_action, _, next_obs, _ = batch
+        with trace.part("critic update", mark):
+            intr, c_loss, c_gn, r_int = self._critic_update(ts, batch,
+                                                            d.target)
+        with trace.part("RND update", mark):
+            # everything below sees normalised obs, as in the JAX agent
+            n_obs = self._norm_obs(ts, obs)
+            n_next = self._norm_obs(ts, next_obs)
+            intr, d_loss, d_gn = self._rnd_update(intr, n_obs, n_next)
 
-        z = self.z[None, None]
-        new_action = base.action_gradient(
-            lambda act: q_min(ts.critic, z, n_obs[None], act),
-            target_action[None], n_steps=dcfg.update_times,
-            lr=dcfg.action_lr, max_grad_norm=self.cfg.algo.max_grad_norm)[0]
-        flat.update_target_action(ts.replay, idx, new_action)
-        mark("action gradient")
+        with trace.part("action gradient", mark):
+            z = self.z[None, None]
+            new_action = base.action_gradient(
+                lambda act: q_min(ts.critic, z, n_obs[None], act),
+                target_action[None], n_steps=dcfg.update_times,
+                lr=dcfg.action_lr,
+                max_grad_norm=self.cfg.algo.max_grad_norm)[0]
+            flat.update_target_action(ts.replay, idx, new_action)
 
-        a_loss = ts.actor.loss(n_obs, new_action, noise=d.loss_noise,
-                               t=d.loss_t)
-        params = list(ts.actor.parameters())
-        a_gn = optim.apply_update(params, torch.autograd.grad(a_loss, params),
-                                  ts.actor_opt, self.actor_spec)
-        mark("actor loss and step")
-        self._soft_targets(ts)
-        mark("soft targets")
+        with trace.part("actor loss and step", mark):
+            a_loss = ts.actor.loss(n_obs, new_action, noise=d.loss_noise,
+                                   t=d.loss_t)
+            params = list(ts.actor.parameters())
+            a_gn = optim.apply_update(
+                params, torch.autograd.grad(a_loss, params), ts.actor_opt,
+                self.actor_spec)
+        with trace.part("soft targets", mark):
+            self._soft_targets(ts)
         logs = {"train/critic_loss": c_loss,
                 "train/actor_loss": a_loss.detach(),
                 "train/critic_grad": c_gn, "train/actor_grad": a_gn,

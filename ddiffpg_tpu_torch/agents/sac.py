@@ -17,6 +17,7 @@ from ddiffpg_tpu_torch.agents.td3 import AgentTD3, TD3State, UpdateDraws
 from ddiffpg_tpu_torch.models.mlp import DoubleQ, TanhDiagGaussianMLPPolicy
 from ddiffpg_tpu_torch.ops import optim
 from ddiffpg_tpu_torch.replay import flat
+from ddiffpg_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(kw_only=True)
@@ -72,51 +73,56 @@ class AgentSAC(AgentTD3):
         (`ddiffpg_tpu/agents/sac.py:62-146`):
         sample, intrinsic reward (before obs normalisation), the MSE
         critic step against the entropy-regularised target, RND on
-        normalised obs, the actor step, auto-alpha, soft targets."""
+        normalised obs, the actor step, auto-alpha, soft targets; each
+        part a span, `mark` as in TD3's."""
         a = self.cfg.algo
-        d = draws or self.draw_update(ts)
-        mark = mark or (lambda part: None)
-        batch, _ = flat.sample(ts.replay, len(d.idx), idx=d.idx)
-        obs, action, _, reward, next_obs, done = batch
-        r_int, intr = self.intrinsic.compute_reward(ts.intrinsic, obs,
-                                                    next_obs)
-        reward = reward + r_int
-        obs, next_obs = self._norm_obs(ts, obs), self._norm_obs(ts, next_obs)
-        alpha = self._alpha(ts)
-        mark("sample")
+        with trace.part("sample", mark):
+            d = draws or self.draw_update(ts)
+            batch, _ = flat.sample(ts.replay, len(d.idx), idx=d.idx)
+            obs, action, _, reward, next_obs, done = batch
+            r_int, intr = self.intrinsic.compute_reward(ts.intrinsic, obs,
+                                                        next_obs)
+            reward = reward + r_int
+            obs = self._norm_obs(ts, obs)
+            next_obs = self._norm_obs(ts, next_obs)
+            alpha = self._alpha(ts)
 
         sample = TanhDiagGaussianMLPPolicy.sample_logprob
-        with torch.no_grad():
-            next_a, next_lp = sample(*ts.actor(next_obs), noise=d.next_noise)
-            q1_t, q2_t = ts.critic_target(next_obs, next_a)
-            target_q = reward + (1 - done) * (a.gamma ** a.nstep) * (
-                torch.minimum(q1_t, q2_t) - alpha * next_lp)
-        q1, q2 = ts.critic(obs, action)
-        c_loss = torch.mean((q1 - target_q) ** 2) + torch.mean(
-            (q2 - target_q) ** 2)
-        params = ts.critic.params()
-        c_gn = optim.apply_update(params, torch.autograd.grad(c_loss, params),
-                                  ts.critic_opt, self.critic_spec)
-        mark("critic update")
-        intr, d_loss, d_gn = self._rnd_update(intr, obs, next_obs)
-        mark("RND update")
+        with trace.part("critic update", mark):
+            with torch.no_grad():
+                next_a, next_lp = sample(*ts.actor(next_obs),
+                                         noise=d.next_noise)
+                q1_t, q2_t = ts.critic_target(next_obs, next_a)
+                target_q = reward + (1 - done) * (a.gamma ** a.nstep) * (
+                    torch.minimum(q1_t, q2_t) - alpha * next_lp)
+            q1, q2 = ts.critic(obs, action)
+            c_loss = torch.mean((q1 - target_q) ** 2) + torch.mean(
+                (q2 - target_q) ** 2)
+            params = ts.critic.params()
+            c_gn = optim.apply_update(
+                params, torch.autograd.grad(c_loss, params), ts.critic_opt,
+                self.critic_spec)
+        with trace.part("RND update", mark):
+            intr, d_loss, d_gn = self._rnd_update(intr, obs, next_obs)
 
-        act, lp = sample(*ts.actor(obs), noise=d.pi_noise)
-        q1, q2 = ts.critic(obs, act)
-        a_loss = (alpha * lp - torch.minimum(q1, q2)).mean()
-        params = list(ts.actor.parameters())
-        a_gn = optim.apply_update(params, torch.autograd.grad(a_loss, params),
-                                  ts.actor_opt, self.actor_spec)
-        mark("actor update")
+        with trace.part("actor update", mark):
+            act, lp = sample(*ts.actor(obs), noise=d.pi_noise)
+            q1, q2 = ts.critic(obs, act)
+            a_loss = (alpha * lp - torch.minimum(q1, q2)).mean()
+            params = list(ts.actor.parameters())
+            a_gn = optim.apply_update(
+                params, torch.autograd.grad(a_loss, params), ts.actor_opt,
+                self.actor_spec)
 
-        if a.alpha is None:
-            tgt = (-lp - self.target_entropy).detach()
-            la = ts.log_alpha.detach().requires_grad_(True)
-            (g,) = torch.autograd.grad((torch.exp(la) * tgt).mean(), [la])
-            optim.apply_update([ts.log_alpha], [g], ts.alpha_opt,
-                               self.alpha_spec)
-        self._soft_targets(ts)
-        mark("alpha and soft targets")
+        with trace.part("alpha and soft targets", mark):
+            if a.alpha is None:
+                tgt = (-lp - self.target_entropy).detach()
+                la = ts.log_alpha.detach().requires_grad_(True)
+                (g,) = torch.autograd.grad((torch.exp(la) * tgt).mean(),
+                                           [la])
+                optim.apply_update([ts.log_alpha], [g], ts.alpha_opt,
+                                   self.alpha_spec)
+            self._soft_targets(ts)
         logs = {"train/critic_loss": c_loss.detach(),
                 "train/actor_loss": a_loss.detach(),
                 "train/critic_grad": c_gn, "train/actor_grad": a_gn,

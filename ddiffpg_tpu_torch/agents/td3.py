@@ -30,6 +30,7 @@ from ddiffpg_tpu_torch.ops import nstep as nstep_ops
 from ddiffpg_tpu_torch.ops import optim
 from ddiffpg_tpu_torch.ops import running_stats as rs
 from ddiffpg_tpu_torch.replay import flat
+from ddiffpg_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -271,27 +272,29 @@ class AgentTD3:
         (`ddiffpg_tpu/agents/td3.py:213-247`):
         sample, critic, RND on normalised obs, actor, soft targets. The
         draws come from `draw_update` unless given; `mark`, when given, is
-        called with each part's name as the part ends. Returns (state,
-        logs of 0-d tensors)."""
-        d = draws or self.draw_update(ts)
-        mark = mark or (lambda part: None)
-        batch, _ = flat.sample(ts.replay, len(d.idx), idx=d.idx)
-        obs, _, _, _, next_obs, _ = batch
-        mark("sample")
-        intr, c_loss, c_gn, r_int = self._critic_update(ts, batch, d.target)
-        mark("critic update")
-        n_obs, n_next = self._norm_obs(ts, obs), self._norm_obs(ts, next_obs)
-        intr, d_loss, d_gn = self._rnd_update(intr, n_obs, n_next)
-        mark("RND update")
+        called with each part's name as the part's span ends
+        (`utils/trace.py:part`). Returns (state, logs of 0-d tensors)."""
+        with trace.part("sample", mark):
+            d = draws or self.draw_update(ts)
+            batch, _ = flat.sample(ts.replay, len(d.idx), idx=d.idx)
+            obs, _, _, _, next_obs, _ = batch
+        with trace.part("critic update", mark):
+            intr, c_loss, c_gn, r_int = self._critic_update(ts, batch,
+                                                            d.target)
+        with trace.part("RND update", mark):
+            n_obs = self._norm_obs(ts, obs)
+            n_next = self._norm_obs(ts, next_obs)
+            intr, d_loss, d_gn = self._rnd_update(intr, n_obs, n_next)
 
-        action = ts.actor(n_obs)
-        a_loss = -self._q_min(ts.critic, n_obs, action).mean()
-        params = list(ts.actor.parameters())
-        a_gn = optim.apply_update(params, torch.autograd.grad(a_loss, params),
-                                  ts.actor_opt, self.actor_spec)
-        mark("actor update")
-        self._soft_targets(ts)
-        mark("soft targets")
+        with trace.part("actor update", mark):
+            action = ts.actor(n_obs)
+            a_loss = -self._q_min(ts.critic, n_obs, action).mean()
+            params = list(ts.actor.parameters())
+            a_gn = optim.apply_update(
+                params, torch.autograd.grad(a_loss, params), ts.actor_opt,
+                self.actor_spec)
+        with trace.part("soft targets", mark):
+            self._soft_targets(ts)
         logs = {"train/critic_loss": c_loss,
                 "train/actor_loss": a_loss.detach(),
                 "train/critic_grad": c_gn, "train/actor_grad": a_gn,

@@ -205,7 +205,9 @@ class Config:
     # carry params/opts/embeddings/rms/PRNG (>= the reference's weights-only
     # artifacts). The end-of-run checkpoint is always full.
     ckpt_full: bool = False
-    profile: bool = False        # capture a profiler trace of iters 20-22
+    # capture a profiler trace of iters 20-22 (profile/trace.json), the
+    # port's layer spans (utils/trace.py) on for it
+    profile: bool = False
     device: str = "auto"         # 'auto': the CUDA card (else raises); 'cpu'
     # numerics
     param_dtype: str = "float32"

@@ -18,6 +18,7 @@ from typing import Dict, NamedTuple
 import torch
 
 from ddiffpg_tpu_torch.physics.substep import substep_reference
+from ddiffpg_tpu_torch.utils import trace
 
 
 class EnvState(NamedTuple):
@@ -66,7 +67,8 @@ class VecEnv:
 
     def step(self, state: EnvState, action: torch.Tensor,
              reset_xy: torch.Tensor | None = None):
-        return self.env.step_batched(state, action, reset_xy=reset_xy)
+        with trace.span("env"):
+            return self.env.step_batched(state, action, reset_xy=reset_xy)
 
 
 def physics_of(model, consts, device: torch.device, use_pallas):
@@ -89,12 +91,13 @@ def physics_of(model, consts, device: torch.device, use_pallas):
 
 def step_physics(env, qpos, qvel, ctrl):
     """One control step of `env`'s physics (`physics_of`) on the state's
-    device, which must be the env's."""
-    if env.engine is not None:
-        return env.engine.graphed_step(qpos, qvel, ctrl)
-    if qpos.device.type == "cpu":
-        return substep_reference(env.consts, qpos, qvel, ctrl)
-    if env.kernel is None or qpos.device != env.kernel.device:
-        raise RuntimeError(f"state on {qpos.device}, env built for "
-                           f"{env.device}")
-    return env.kernel(qpos, qvel, ctrl)
+    device, which must be the env's (the span `physics`)."""
+    with trace.span("physics"):
+        if env.engine is not None:
+            return env.engine.graphed_step(qpos, qvel, ctrl)
+        if qpos.device.type == "cpu":
+            return substep_reference(env.consts, qpos, qvel, ctrl)
+        if env.kernel is None or qpos.device != env.kernel.device:
+            raise RuntimeError(f"state on {qpos.device}, env built for "
+                               f"{env.device}")
+        return env.kernel(qpos, qvel, ctrl)

@@ -39,6 +39,7 @@ import torch
 from ddiffpg_tpu_torch.envs.base import EnvState, physics_of, step_physics
 from ddiffpg_tpu_torch.physics import panda as P
 from ddiffpg_tpu_torch.physics.substep import SubstepConstants
+from ddiffpg_tpu_torch.utils import trace
 
 
 class PandaTaskEnv:
@@ -98,15 +99,17 @@ class PandaTaskEnv:
     # -- obs ------------------------------------------------------------------
 
     def _ee_state(self, qpos, qvel):
-        """End-effector position and velocity [B, 3] each."""
-        kin = self.arm.kin
-        body_pos, body_quat = kin.fk(qpos)
-        p_ee = self.arm.ee_position(body_pos, body_quat)
-        S = kin.dof_subspaces(body_pos, body_quat)
-        V = kin.body_velocities(S, kin.qvel_to_u(qvel, body_pos))
-        h = self.arm.hand
-        v_ee = V[:, h, 3:] + torch.linalg.cross(V[:, h, :3], p_ee)
-        return p_ee, v_ee
+        """End-effector position and velocity [B, 3] each (the span
+        `ee_state`)."""
+        with trace.span("ee_state"):
+            kin = self.arm.kin
+            body_pos, body_quat = kin.fk(qpos)
+            p_ee = self.arm.ee_position(body_pos, body_quat)
+            S = kin.dof_subspaces(body_pos, body_quat)
+            V = kin.body_velocities(S, kin.qvel_to_u(qvel, body_pos))
+            h = self.arm.hand
+            v_ee = V[:, h, 3:] + torch.linalg.cross(V[:, h, :3], p_ee)
+            return p_ee, v_ee
 
     def _obs_from(self, qpos, p_ee, v_ee):
         parts = [p_ee, v_ee]

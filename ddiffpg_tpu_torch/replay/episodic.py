@@ -29,6 +29,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ddiffpg_tpu_torch.utils import trace
+
 # "never recorded" sentinel for per-goal closest-approach distances
 FRONTIER_INF = 1.0e9
 
@@ -157,56 +159,57 @@ def add(buf: EpisodicReplay, obs, action, reward, next_obs, done_bootstrap,
     oldest protected frontier failures (+2^29), by a stable argsort; the
     k-th finishing env (in env order) takes the k-th slot.
     """
-    E = obs.shape[0]
-    if buf.capacity < 2 * E:
-        raise ValueError("episodic capacity must be >= 2 * num_envs")
-    dev = obs.device
-    t = buf.tmp_len.long()
-    env = torch.arange(E, device=dev)
-    buf.tmp_obs[env, t] = obs
-    buf.tmp_obs[env, t + 1] = next_obs
-    buf.tmp_action[env, t] = action
-    buf.tmp_reward[env, t] = reward
-    buf.tmp_done[env, t] = done_bootstrap.to(torch.bool)
-    if goal_dist is not None:
-        torch.minimum(buf.tmp_frontier, goal_dist, out=buf.tmp_frontier)
-    buf.tmp_len.add_(1)
+    with trace.span("replay_add"):
+        E = obs.shape[0]
+        if buf.capacity < 2 * E:
+            raise ValueError("episodic capacity must be >= 2 * num_envs")
+        dev = obs.device
+        t = buf.tmp_len.long()
+        env = torch.arange(E, device=dev)
+        buf.tmp_obs[env, t] = obs
+        buf.tmp_obs[env, t + 1] = next_obs
+        buf.tmp_action[env, t] = action
+        buf.tmp_reward[env, t] = reward
+        buf.tmp_done[env, t] = done_bootstrap.to(torch.bool)
+        if goal_dist is not None:
+            torch.minimum(buf.tmp_frontier, goal_dist, out=buf.tmp_frontier)
+        buf.tmp_len.add_(1)
 
-    fin = torch.nonzero(episode_end.to(torch.bool)).squeeze(1)
-    n = fin.numel()
-    if n == 0:
+        fin = torch.nonzero(episode_end.to(torch.bool)).squeeze(1)
+        n = fin.numel()
+        if n == 0:
+            return buf
+        protect = (buf.traj_id >= 0) & (buf.success > 0)
+        fmask = frontier_mask(buf, frontier_keep)
+        zero = torch.zeros_like(buf.traj_id)
+        sort_key = torch.where(
+            buf.traj_id < 0, torch.full_like(buf.traj_id, -2 ** 30),
+            buf.traj_id + torch.where(protect, 2 ** 28, zero)
+            + torch.where(fmask, 2 ** 29, zero))
+        slot = torch.argsort(sort_key, stable=True)[:n]
+
+        buf.obs[slot] = buf.tmp_obs[fin]
+        buf.action[slot] = buf.tmp_action[fin]
+        buf.reward[slot] = buf.tmp_reward[fin]
+        buf.done[slot] = buf.tmp_done[fin]
+        buf.length[slot] = buf.tmp_len[fin]
+        buf.success[slot] = success[fin].to(torch.int32)
+        buf.traj_id[slot] = buf.next_id + torch.arange(n, device=dev,
+                                                       dtype=torch.int32)
+        buf.frontier[slot] = buf.tmp_frontier[fin]
+        buf.next_id.add_(n)
+        # group 0 takes the fresh slots at once; other groups drop them
+        buf.group_mask[:, slot] = False
+        buf.group_mask[0, slot] = True
+        # fresh trajectories start with target_action = raw actions in every
+        # group row (the reference initialises buf_target_action to actions)
+        buf.target_action[:, slot] = buf.tmp_action[fin][None]
+
+        for x in (buf.tmp_obs, buf.tmp_action, buf.tmp_reward, buf.tmp_done,
+                  buf.tmp_len):
+            x[fin] = 0
+        buf.tmp_frontier[fin] = FRONTIER_INF
         return buf
-    protect = (buf.traj_id >= 0) & (buf.success > 0)
-    fmask = frontier_mask(buf, frontier_keep)
-    zero = torch.zeros_like(buf.traj_id)
-    sort_key = torch.where(
-        buf.traj_id < 0, torch.full_like(buf.traj_id, -2 ** 30),
-        buf.traj_id + torch.where(protect, 2 ** 28, zero)
-        + torch.where(fmask, 2 ** 29, zero))
-    slot = torch.argsort(sort_key, stable=True)[:n]
-
-    buf.obs[slot] = buf.tmp_obs[fin]
-    buf.action[slot] = buf.tmp_action[fin]
-    buf.reward[slot] = buf.tmp_reward[fin]
-    buf.done[slot] = buf.tmp_done[fin]
-    buf.length[slot] = buf.tmp_len[fin]
-    buf.success[slot] = success[fin].to(torch.int32)
-    buf.traj_id[slot] = buf.next_id + torch.arange(n, device=dev,
-                                                   dtype=torch.int32)
-    buf.frontier[slot] = buf.tmp_frontier[fin]
-    buf.next_id.add_(n)
-    # group 0 takes the fresh slots at once; other groups drop them
-    buf.group_mask[:, slot] = False
-    buf.group_mask[0, slot] = True
-    # fresh trajectories start with target_action = raw actions in every
-    # group row (the reference initialises buf_target_action to actions)
-    buf.target_action[:, slot] = buf.tmp_action[fin][None]
-
-    for x in (buf.tmp_obs, buf.tmp_action, buf.tmp_reward, buf.tmp_done,
-              buf.tmp_len):
-        x[fin] = 0
-    buf.tmp_frontier[fin] = FRONTIER_INF
-    return buf
 
 
 class GroupBatch(NamedTuple):

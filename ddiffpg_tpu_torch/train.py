@@ -49,6 +49,7 @@ from ddiffpg_tpu_torch.agents.evaluation import eval_rollout
 from ddiffpg_tpu_torch.envs import make
 from ddiffpg_tpu_torch.physics import maze
 from ddiffpg_tpu_torch.utils import checkpoint as ckpt
+from ddiffpg_tpu_torch.utils import trace
 from ddiffpg_tpu_torch.utils.logger import Logger
 
 
@@ -340,12 +341,15 @@ def _loop(cfg, agent, eval_env, eval_gen, generators, requests, resume,
                 if device.type == "cuda" else [])
             prof = torch.profiler.profile(activities=acts)
             prof.start()
+            # the port's layer spans, on the host and device timelines
+            trace.enable(True)
         t0 = time.perf_counter()
         ts, logs = agent.train_iter(ts, steps=global_steps)
         iter_s += time.perf_counter() - t0
         iter_n += 1
         if iter_t == 22 and prof is not None:
             _sync(device)
+            trace.enable(False)
             prof.stop()
             (logger.dir / "profile").mkdir(exist_ok=True)
             prof.export_chrome_trace(str(logger.dir / "profile"
