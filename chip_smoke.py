@@ -6,7 +6,8 @@
 Builds the CUDA substep kernel from this checkout for the ant and the four
 Panda scenes (one nvcc per model, all started together; the DTW kernel at
 phase 10), holds every build
-to its plain PyTorch version on the card, drives DDiffPG's collect path at
+to its plain PyTorch version on the card (the Panda builds' ee-state entry
+to `Arm.ee_state`), drives DDiffPG's collect path at
 4096 envs with a stock-width diffusion policy (random weights from a seed)
 on antmaze-v1, PandaDrawerMultiJoints-v3 and PandaReachJoints-v3, and
 probes the goals. A collect step and its parts are timed on the host clock
@@ -99,7 +100,7 @@ from ddiffpg_tpu_torch.physics import engine, maze
 from ddiffpg_tpu_torch.physics.engine_cl import Engine, chol_solve
 from ddiffpg_tpu_torch.physics import quat as Q
 from ddiffpg_tpu_torch.physics.panda import (JOINT_LIMIT_HI, JOINT_LIMIT_LO,
-                                             build_panda_scene)
+                                             Arm, build_panda_scene)
 from ddiffpg_tpu_torch.physics.substep import (SubstepConstants,
                                                substep_reference)
 from ddiffpg_tpu_torch.physics.substep_cuda import (SubstepKernel, build,
@@ -126,6 +127,9 @@ PANDA_TASKS = ("Reach", "PegInsertion", "DrawerMulti", "Cabinet")
 # (2.06e-3 measured on Cabinet, one env of 4096, on an H100)
 TOL = {1: (5e-6, 5e-5), 10: (5e-5, 5e-4)}
 PANDA_TOL = {1: (1e-5, 2e-4), 20: (1e-4, 5e-3)}
+# the Panda ee state (p_ee, v_ee) of `SubstepKernel.ee_state` against the
+# plain `Arm.ee_state`: one FK and velocity walk in float32, no substep
+EE_STATE_TOL = (1e-5, 1e-4)
 TRAIN_ENVS = 1024        # bench.py:26's train-iteration cell
 TRAIN_ITERS = 10         # timed train iterations, after 2 untimed
 SPLIT_REPS = 5           # calls per part of the host split (median)
@@ -300,6 +304,21 @@ def substep_bound(c: SubstepConstants, qpos, qvel, ctrl):
     return max(t_ops, t_bytes) * 1e3, by, counter.ops
 
 
+def ee_state_bound(arm: Arm, qpos, qvel):
+    """(bound ms, what sets it, flops per env) of one ee-state launch on
+    these inputs: the larger of the plain `Arm.ee_state`'s elementwise ops
+    on [B] rows over the card's fp32 peak and the bytes that must move
+    (qpos, qvel read once; [p_ee, v_ee] written once) over its HBM rate."""
+    B = qpos.shape[0]
+    counter = RowOpCounter(B)
+    with counter:
+        arm.ee_state(qpos, qvel)
+    t_ops = counter.ops * B / PEAK_FP32_FLOPS
+    t_bytes = 4 * B * (qpos.shape[1] + qvel.shape[1] + 6) / PEAK_HBM_BYTES
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes) * 1e3, by, counter.ops
+
+
 def ant_states(init_qpos: np.ndarray, B: int, seed: int, wall: bool,
                device="cuda"):
     """Random ant states as tests/test_pallas.py draws them; with `wall`,
@@ -421,6 +440,35 @@ def check_kernel(kern: SubstepKernel, label: str, args, tol, phase: str):
     return max(eq, ev)
 
 
+def check_ee_state(kern: SubstepKernel, arm: Arm, qpos, qvel, label: str,
+                   phase: str):
+    """`kern.ee_state` against the plain `arm.ee_state` at NUM_ENVS rows
+    (EE_STATE_TOL); the launches at BASELINE_ENVS and EVAL_ENVS rows must
+    give the largest one's first rows bit for bit. Returns the largest
+    error."""
+    got = kern.ee_state(qpos, qvel, arm.hand, arm.ee_offset_host)
+    p_ee, v_ee = arm.ee_state(qpos, qvel)
+    torch.cuda.synchronize()
+    ep = float((got[:, :3] - p_ee).abs().max())
+    ev = float((got[:, 3:] - v_ee).abs().max())
+    tp, tv = EE_STATE_TOL
+    ok = ep <= tp and ev <= tv and bool(torch.isfinite(got).all())
+    log(phase, f"{label} ee state B={NUM_ENVS}: max|err| p_ee {ep:.3e} "
+        f"(tol {tp:g}) v_ee {ev:.3e} (tol {tv:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("ee-state kernel disagrees with Arm.ee_state")
+    for B in (BASELINE_ENVS, EVAL_ENVS):
+        small = kern.ee_state(qpos[:B].contiguous(), qvel[:B].contiguous(),
+                              arm.hand, arm.ee_offset_host)
+        same = torch.equal(small, got[:B])
+        log(phase, f"{label} ee state B={B}: bitwise the B={NUM_ENVS} "
+            f"launch's first rows {same}")
+        if not same:
+            raise RuntimeError(f"{label} ee state: B={B} rows differ from "
+                               f"B={NUM_ENVS} rows")
+    return max(ep, ev)
+
+
 def check_collect(env, roll, state, t_before, n_steps: int, what: str):
     """Finite records of the right shapes, actions in [-1, 1], and
     auto-reset: an env's clock restarts at 0 on the step it finished.
@@ -475,8 +523,10 @@ def timed_collect(actor: Actor, env, kernel: SubstepKernel, n_steps: int,
                   what: str):
     """Reset with staggered episode clocks (so truncation and auto-reset
     fall inside the window), one warm-up step, then `n_steps` timed control
-    steps with the kernel's count set to 0 just before and read just after.
-    Returns (state, obs, rollout, seconds, launches, envs reset)."""
+    steps with the kernel's counts (`launches`, `ee_launches`) set to 0
+    just before and read just after: a Panda kernel must have launched its
+    ee state once a step too. Returns (state, obs, rollout, seconds,
+    launches, envs reset)."""
     state, obs = env.reset()
     t_start = torch.randint(0, env.max_episode_length, (env.num_envs,),
                             generator=actor.gen, device="cuda",
@@ -484,7 +534,7 @@ def timed_collect(actor: Actor, env, kernel: SubstepKernel, n_steps: int,
     state, obs, _ = actor.collect(env, state._replace(t=t_start), obs, 1)
     t_before = state.t.clone()
     torch.cuda.synchronize()
-    kernel.launches = 0
+    kernel.launches = kernel.ee_launches = 0
     t0 = time.time()
     state, obs, roll = actor.collect(env, state, obs, n_steps)
     torch.cuda.synchronize()
@@ -492,6 +542,10 @@ def timed_collect(actor: Actor, env, kernel: SubstepKernel, n_steps: int,
     launches = kernel.launches
     if launches != n_steps:
         raise RuntimeError(f"{what}: collect launched the kernel {launches} "
+                           "times")
+    ee = kernel.ee_launches
+    if ee != (n_steps if kernel.consts.has_servo else 0):
+        raise RuntimeError(f"{what}: collect launched the ee state {ee} "
                            "times")
     n_reset = check_collect(env, roll, state, t_before, n_steps, what)
     return state, obs, roll, seconds, launches, n_reset
@@ -1462,7 +1516,9 @@ def panda_ee_phase(smi: str, cfg: Config):
     collects of PandaDrawerMulti-v3 and PandaReach-v3 (ee) at 4096 envs
     with the host split of a control step; stock DDiffPG on
     PandaReach-v3 with `env.control_type=ee`; a recluster of 3-D ee tracks
-    with use_downsampling. Returns (record, launches, split)."""
+    with use_downsampling. Returns (record, launches, split, DTW
+    launches); `launches` holds the substep's and, of the two collects,
+    the ee state's (`drawer_ee`, `reach_ee`)."""
     rec = {}
     env = make("PandaDrawerMulti-v3", num_envs=NUM_ENVS, device="cuda",
                seed=0)
@@ -1487,6 +1543,7 @@ def panda_ee_phase(smi: str, cfg: Config):
     actor = Actor(env, cfg, gen)
     state, obs, roll, secs, drawer_n, n_reset = timed_collect(
         actor, env, drawer.kernel, N_STEPS, "PandaDrawerMulti-v3")
+    drawer_ee = drawer.kernel.ee_launches
     log("12 panda ee", f"DrawerMulti (ee, 4-D actions) collect {N_STEPS} "
         f"steps x {NUM_ENVS} envs: {secs:.3f} s, "
         f"{NUM_ENVS * N_STEPS / secs:.0f} env steps/s, kernel launches "
@@ -1505,6 +1562,7 @@ def panda_ee_phase(smi: str, cfg: Config):
     reach_actor = Actor(reach, cfg, gen)
     _, _, _, secs, reach_n, n_reset = timed_collect(
         reach_actor, reach, reach.env.kernel, N_REACH_STEPS, "PandaReach-v3")
+    reach_ee = reach.env.kernel.ee_launches
     log("12 panda ee", f"Reach (ee, 3-D actions) collect {N_REACH_STEPS} "
         f"steps x {NUM_ENVS} envs: {secs:.3f} s, "
         f"{NUM_ENVS * N_REACH_STEPS / secs:.0f} env steps/s, kernel "
@@ -1527,7 +1585,8 @@ def panda_ee_phase(smi: str, cfg: Config):
         fam, 100, 3, 0.002, smi, "12 panda ee", "PandaDrawerMulti ee-track "
         "recluster (use_downsampling)", use_downsampling=True)
     launches = {"drawer": drawer_n, "reach": reach_n
-                + train["kernel_launches"]}
+                + train["kernel_launches"], "drawer_ee": drawer_ee,
+                "reach_ee": reach_ee}
     return rec, launches, split, dtw_n
 
 
@@ -2766,6 +2825,21 @@ def main() -> int:
             f"{panda_plain_ms[task]:.2f} ms, bound {panda_bound[task][0]:.5f}"
             f" ms ({panda_bound[task][1]}, {panda_bound[task][2]} flops per "
             f"env per substep) [{smi}]")
+    # the Panda builds' second entry, the ee state, against Arm.ee_state
+    ee_err, ee_ms, ee_plain_ms, ee_bound = {}, {}, {}, {}
+    for task in ("DrawerMulti", "Reach"):
+        m, meta = scenes[task]
+        kern, arm = pk[(task, 20)], Arm(m, meta, "cuda")
+        qp, qv, _ = panda_states(m, meta, NUM_ENVS, 1)
+        ee_err[task] = check_ee_state(kern, arm, qp, qv, task, "3p panda")
+        ee_ms[task] = cuda_ms(lambda: kern.ee_state(
+            qp, qv, arm.hand, arm.ee_offset_host), 50)
+        ee_plain_ms[task] = cuda_ms(lambda: arm.ee_state(qp, qv), 5)
+        ee_bound[task] = ee_state_bound(arm, qp, qv)
+        log("3p panda", f"{task} ee state at B={NUM_ENVS}: kernel "
+            f"{ee_ms[task]:.4f} ms, plain PyTorch {ee_plain_ms[task]:.2f} "
+            f"ms, bound {ee_bound[task][0]:.6f} ms ({ee_bound[task][1]}, "
+            f"{ee_bound[task][2]} flops per env) [{smi}]")
 
     stamp("phases 3-3p (kernels vs plain)")
 
@@ -2813,6 +2887,7 @@ def main() -> int:
     actor = Actor(env, cfg, gen)
     state, obs, roll, secs, drawer_launches, n_reset = timed_collect(
         actor, env, drawer.kernel, N_STEPS, "PandaDrawerMultiJoints-v3")
+    drawer_ee = drawer.kernel.ee_launches
     log("6 panda", f"DrawerMulti collect {N_STEPS} steps x {NUM_ENVS} envs: "
         f"{secs:.3f} s, {NUM_ENVS * N_STEPS / secs:.0f} env steps/s, kernel "
         f"launches {drawer_launches}, envs auto-reset {n_reset}, drawers "
@@ -2850,6 +2925,7 @@ def main() -> int:
     _, _, _, secs, reach_launches, n_reset = timed_collect(
         reach_actor, reach_env, reach_env.env.kernel, N_REACH_STEPS,
         "PandaReachJoints-v3")
+    reach_ee = reach_env.env.kernel.ee_launches
     log("6 panda", f"Reach collect {N_REACH_STEPS} steps x {NUM_ENVS} envs: "
         f"{secs:.3f} s, {NUM_ENVS * N_REACH_STEPS / secs:.0f} env steps/s, "
         f"kernel launches {reach_launches}, envs auto-reset {n_reset} "
@@ -2955,6 +3031,15 @@ def main() -> int:
                      reach_launches + ee_launches["reach"],
                      panda_err["Reach"], panda_ms["Reach"],
                      panda_plain_ms["Reach"], panda_bound["Reach"]),
+        kernel_entry("ee_state_panda_drawermulti",
+                     drawer_ee + ee_launches["drawer_ee"],
+                     ee_err["DrawerMulti"], ee_ms["DrawerMulti"],
+                     ee_plain_ms["DrawerMulti"], ee_bound["DrawerMulti"],
+                     replaces="ddiffpg_tpu/envs/panda.py:66"),
+        kernel_entry("ee_state_panda_reach",
+                     reach_ee + ee_launches["reach_ee"], ee_err["Reach"],
+                     ee_ms["Reach"], ee_plain_ms["Reach"], ee_bound["Reach"],
+                     replaces="ddiffpg_tpu/envs/panda.py:66"),
         *[kernel_entry(f"substep_{name.replace('-', '_')}",
                        maze_launches[name], err, ms, plain_ms, bound)
           for name, err, ms, plain_ms, bound in maze_entries],

@@ -15,7 +15,10 @@
 //   RNEA bias -> servo gravity compensation -> CRBA -> servos, motors,
 //   damping, limit springs -> Cholesky solve -> semi-implicit integration
 //   with clamps and inelastic limit stops.
-// physics/substep.py:check_supported guards the class.
+// physics/substep.py:check_supported guards the class. The Panda builds
+// (HAS_SERVO) carry a second entry, ee_state_kernel (after
+// substep_kernel): the end effector's position and velocity from the
+// substep's first phases.
 //
 // Design. An env's work is spread over a group of LANES threads (8, 16 or
 // 32, a compile-time define; physics/substep_cuda.py:lanes_for picks 16,
@@ -477,9 +480,8 @@ __device__ void ph_subspace(PHASE_ARGS) {
 }
 
 // ---------------- c. body spatial velocities: a walk in body order, one
-// lane per component; d. 6x6 spatial inertias about p0, one item per
-// (body, row r), which writes rows r and 3 + r
-__device__ void ph_velocity_inertia(PHASE_ARGS) {
+// lane per component
+__device__ __forceinline__ void ph_velocity(PHASE_ARGS) {
   if (lane < 6) {
     const int c = lane;
     float v = 0.0f;  // V[i-1][c]
@@ -497,6 +499,12 @@ __device__ void ph_velocity_inertia(PHASE_ARGS) {
       s.V[i][c] = v;
     }
   }
+}
+
+// the velocities, then d. 6x6 spatial inertias about p0, one item per
+// (body, row r), which writes rows r and 3 + r
+__device__ void ph_velocity_inertia(PHASE_ARGS) {
+  ph_velocity(m, s, lane);
   FOR_LANE(it, NB * 3) {
     const int i = it / 3, r = it - 3 * i;
     const Q4 qq = ldq(s.quat[i]);
@@ -1146,25 +1154,136 @@ __global__ void __launch_bounds__(BLOCK_THREADS, LANES / 8)
   FOR_LANE(k, NQ) qpos_out[(size_t)env * NQ + k] = s.q[k];
   FOR_LANE(k, NV) qvel_out[(size_t)env * NV + k] = s.qd[k];
 }
+#endif
 
+#if HAS_SERVO  // ---- the end-effector state
+// A second entry, for the Panda builds only: the end effector's position
+// and linear velocity of each env (envs/panda.py:PandaTaskEnv._ee_state),
+// one launch a control step beside the substep's, in place of the ~900
+// small PyTorch kernels of physics/engine.py:Kinematics (fk,
+// dof_subspaces, qvel_to_u, body_velocities) and Arm.ee_position. It
+// replaces no TPU kernel: the JAX package computes the ee state in XLA.
+// It runs the substep's first phases on the same model block, Slice and
+// group of lanes (hinge rotations, FK, motion subspaces, the velocity
+// walk), then lane 0 writes [p_ee, v_ee]:
+//   p_ee = pos[hand] + rotate(quat[hand], off)
+//   v_ee = V[hand].l + V[hand].a x (p_ee - p0)
+// The subspaces are taken about the body centroid p0, as the substep's
+// (Kinematics takes them about the world origin), so V[hand]'s linear
+// part is the velocity of the point at p0. Bound by the serial FK chain of
+// each env (a few thousand flops an env, 24 bytes written). The substep
+// kernel's preamble is written out again here: helpers shared by the two
+// kernels gave substep_kernel other registers (ptxas, CUDA 12.8).
+// EE_PHASE is PHASE under its own name, which tools/phase_clocks.py does
+// not rewrite (it counts the substep's phases only).
+#ifdef SUBSTEP_HOST
+#define EE_PHASE(fn) \
+  for (int l_ = 0; l_ < LANES; ++l_) fn(m, s, l_)
+#else
+#define EE_PHASE(fn)  \
+  do {                \
+    fn(m, s, lane);   \
+    __syncwarp(mask); \
+  } while (0)
+#endif
+
+__device__ void ee_state_group(const SubstepModel& m, Slice& s, int lane,
+                               unsigned mask, int hand, V3 off, float* out) {
+  (void)mask;
+  EE_PHASE(ph_hinge_rot);
+  EE_PHASE(ph_fk);
+  EE_PHASE(ph_subspace);
+  EE_PHASE(ph_velocity);
+  if (lane != 0) return;
+  const V3 p = vadd(ld3(s.pos[hand]), qrot(ldq(s.quat[hand]), off));
+  const SV V = ldsv(s.V[hand]);
+  st3(out, p);
+  st3(out + 3, vadd(V.l, vcross(V.a, vsub(p, ld3(s.p0)))));
+}
+
+#ifdef SUBSTEP_HOST
+extern "C" void ee_state_host(const void* model, const float* qpos,
+                              const float* qvel, float* out, int hand,
+                              float ox, float oy, float oz, int B) {
+  SubstepModel m;
+  memcpy(&m, model, sizeof(SubstepModel));
+  Slice s;
+  for (int env = 0; env < B; ++env) {
+    memcpy(s.q, qpos + (size_t)env * NQ, sizeof(s.q));
+    memcpy(s.qd, qvel + (size_t)env * NV, sizeof(s.qd));
+    ee_state_group(m, s, 0, 0u, hand, mk(ox, oy, oz), out + (size_t)env * 6);
+  }
+}
+#else
+__global__ void __launch_bounds__(BLOCK_THREADS, LANES / 8)
+    ee_state_kernel(const float* __restrict__ qpos,
+                    const float* __restrict__ qvel, float* __restrict__ out,
+                    int hand, float ox, float oy, float oz, int B) {
+  extern __shared__ float smem[];
+  {
+    const int* src = reinterpret_cast<const int*>(&c_m);
+    int* dst = reinterpret_cast<int*>(smem);
+    for (int i = threadIdx.x; i < (int)(sizeof(SubstepModel) / 4);
+         i += BLOCK_THREADS)
+      dst[i] = src[i];
+  }
+  __syncthreads();
+  const SubstepModel& m = *reinterpret_cast<const SubstepModel*>(smem);
+  const int g = threadIdx.x / LANES, lane = threadIdx.x % LANES;
+  const int env = blockIdx.x * GROUPS + g;
+  if (env >= B) return;
+  Slice& s = *reinterpret_cast<Slice*>(reinterpret_cast<char*>(smem) +
+                                       MODEL_BYTES + g * SLICE_BYTES);
+  const unsigned mask =
+      LANES == 32 ? 0xffffffffu
+                  : ((1u << (LANES & 31)) - 1u) << ((threadIdx.x & 31) &
+                                                     ~(LANES - 1));
+  FOR_LANE(k, NQ) s.q[k] = qpos[(size_t)env * NQ + k];
+  FOR_LANE(k, NV) s.qd[k] = qvel[(size_t)env * NV + k];
+  __syncwarp(mask);
+  ee_state_group(m, s, lane, mask, hand, mk(ox, oy, oz),
+                 out + (size_t)env * 6);
+}
+
+extern "C" int ee_state_launch(const float* qpos, const float* qvel,
+                               float* out, int hand, float ox, float oy,
+                               float oz, int B, void* stream) {
+  if (B <= 0) return 0;
+  const int blocks = (B + GROUPS - 1) / GROUPS;
+  ee_state_kernel<<<blocks, BLOCK_THREADS, SHARED_BYTES,
+                    (cudaStream_t)stream>>>(qpos, qvel, out, hand, ox, oy,
+                                            oz, B);
+  return (int)cudaGetLastError();
+}
+#endif
+#endif  // HAS_SERVO: the end-effector state
+
+#ifndef SUBSTEP_HOST
 // ---------------------------------------------------------------------------
 // plain C interface, bound with ctypes in physics/substep_cuda.py
 
-// Uploads the model and sets the kernel's shared memory: the dynamic size
-// of a block, and the largest shared carveout of an SM's 256 KB, so that
-// the blocks of 32 envs (DrawerMulti: two of 95 KB) fit on one SM together
-// rather than as CUDA's default carveout would have it.
+// The dynamic shared memory of a block of `kernel`, and the largest shared
+// carveout of an SM's 256 KB, so that the blocks of 32 envs (DrawerMulti:
+// two of 95 KB) fit on one SM together rather than as CUDA's default
+// carveout would have it.
+static cudaError_t set_shared(const void* kernel) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SHARED_BYTES);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
+// Uploads the model and sets each kernel's shared memory.
 extern "C" int substep_set_model(const void* host_model) {
   cudaError_t err =
       cudaMemcpyToSymbol(c_m, host_model, sizeof(SubstepModel));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(substep_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SHARED_BYTES);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(substep_kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) err = set_shared((const void*)substep_kernel);
+#if HAS_SERVO  // ---- the end-effector state
+  if (err == cudaSuccess) err = set_shared((const void*)ee_state_kernel);
+#endif  // HAS_SERVO: the end-effector state
   return (int)err;
 }
 

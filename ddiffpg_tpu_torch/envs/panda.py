@@ -26,9 +26,11 @@ the CUDA substep kernel (`physics/substep_cuda.py`), for any batch size,
 and on the CPU its plain PyTorch version (`physics/substep.py`); with
 False the env steps `physics/engine_cl.py` on whichever device it lives
 (on a card through a CUDA graph a batch size). The env is built on the
-card unless the caller passes `device="cpu"`. The kinematics (FK for the
-observation and the IK) read index and constant tensors the env builds
-once (`physics/panda.py:Arm`).
+card unless the caller passes `device="cpu"`. The observation's ee state
+follows the physics: through the substep kernel, one launch of its
+ee-state entry (`SubstepKernel.ee_state`); otherwise, and for the `ee`
+control's FK and IK, the kinematics of `physics/panda.py:Arm`, which read
+index and constant tensors the env builds once.
 """
 
 from __future__ import annotations
@@ -100,16 +102,14 @@ class PandaTaskEnv:
 
     def _ee_state(self, qpos, qvel):
         """End-effector position and velocity [B, 3] each (the span
-        `ee_state`)."""
+        `ee_state`): one launch of the substep kernel's ee-state entry
+        where the env steps through that kernel, else `Arm.ee_state`."""
         with trace.span("ee_state"):
-            kin = self.arm.kin
-            body_pos, body_quat = kin.fk(qpos)
-            p_ee = self.arm.ee_position(body_pos, body_quat)
-            S = kin.dof_subspaces(body_pos, body_quat)
-            V = kin.body_velocities(S, kin.qvel_to_u(qvel, body_pos))
-            h = self.arm.hand
-            v_ee = V[:, h, 3:] + torch.linalg.cross(V[:, h, :3], p_ee)
-            return p_ee, v_ee
+            if self.kernel is None:
+                return self.arm.ee_state(qpos, qvel)
+            out = self.kernel.ee_state(qpos, qvel, self.arm.hand,
+                                       self.arm.ee_offset_host)
+            return out[:, :3], out[:, 3:]
 
     def _obs_from(self, qpos, p_ee, v_ee):
         parts = [p_ee, v_ee]

@@ -12,13 +12,12 @@ for, so the package imports on a machine with neither `nvcc` nor a card.
 from __future__ import annotations
 
 import ctypes
-import re
 from pathlib import Path
 
 import torch
 
 from ddiffpg_tpu_torch.ops.dtw import MAX_DIM, MAX_LEN, check_inputs
-from ddiffpg_tpu_torch.physics.substep_cuda import _nvcc, compile_library
+from ddiffpg_tpu_torch.physics import substep_cuda
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "dtw.cu"
 # -fmad=false: no a*b+c contracted into an FMA, so the kernel rounds like
@@ -43,29 +42,15 @@ def launch_geometry(L: int, D: int) -> tuple[int, int, int]:
 def ptxas_report(log: str) -> dict:
     """ptxas' `-v` lines of a build, by template: (R, D) -> registers,
     stack frame, spill stores and loads (bytes)."""
-    out, cur = {}, None
-    for line in log.splitlines():
-        m = re.search(r"dtw_kernelILi(\d+)ELi(\d+)E", line)
-        if m and ("Compiling entry" in line or "Function properties" in line):
-            cur = out.setdefault((int(m[1]), int(m[2])), {})
-            continue
-        if cur is None:
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
-        if m:
-            cur.update(stack=int(m[1]), spill_stores=int(m[2]),
-                       spill_loads=int(m[3]))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            cur["registers"] = int(m[1])
-    return out
+    return substep_cuda.ptxas_report(
+        log, r"dtw_kernelILi(\d+)ELi(\d+)E", lambda m: (int(m[1]), int(m[2])))
 
 
 def build() -> Path:
     """Compile the kernel (cached by the source's and the flags' hash);
     returns the library's path. ptxas' report is kept as `<name>.log`."""
-    return compile_library(_nvcc(), NVCC_FLAGS, SOURCE, "dtw")
+    return substep_cuda.compile_library(substep_cuda._nvcc(), NVCC_FLAGS,
+                                        SOURCE, "dtw")
 
 
 def _load():

@@ -234,6 +234,8 @@ class Arm:
         self.kin = engine.Kinematics(model, device)
         dev = self.kin.device
         self.hand = int(meta["hand_idx"])
+        self.ee_offset_host = tuple(
+            np.asarray(meta["ee_offset"], np.float32).tolist())
         self.ee_offset = torch.as_tensor(
             np.asarray(meta["ee_offset"], np.float32), device=dev)
         body = np.asarray(meta["arm_body_idx"], np.int64)
@@ -247,6 +249,18 @@ class Arm:
         """World position [B, 3] of the end effector (tcp / peg tip)."""
         h = self.hand
         return body_pos[:, h] + Q.rotate(body_quat[:, h], self.ee_offset)
+
+    def ee_state(self, qpos: torch.Tensor, qvel: torch.Tensor):
+        """The end effector's world position and linear velocity [B, 3]
+        each, through `engine.Kinematics` (world-origin subspaces)."""
+        kin = self.kin
+        body_pos, body_quat = kin.fk(qpos)
+        p_ee = self.ee_position(body_pos, body_quat)
+        S = kin.dof_subspaces(body_pos, body_quat)
+        V = kin.body_velocities(S, kin.qvel_to_u(qvel, body_pos))
+        h = self.hand
+        v_ee = V[:, h, 3:] + torch.linalg.cross(V[:, h, :3], p_ee)
+        return p_ee, v_ee
 
     def ee_jacobian(self, body_pos: torch.Tensor, body_quat: torch.Tensor):
         """(J [B, 3, 7], p_ee [B, 3]): the end effector's positional

@@ -25,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -218,6 +219,34 @@ def build(c: SubstepConstants, lanes: int | None = None) -> Path:
                            SOURCE, "substep", bytes(model_block(c)))
 
 
+def ptxas_report(log: str, entry: str = r"(substep_kernel|ee_state_kernel)",
+                 key=lambda m: m[1]) -> dict:
+    """ptxas' `-v` lines of a build, by entry: `key` of the match of the
+    regex `entry` in the entry's name (default: `substep_kernel`,
+    `ee_state_kernel`) -> registers, stack frame, spill stores and loads
+    (bytes)."""
+    out, compiling, props = {}, None, None
+
+    def find(line):
+        m = re.search(entry, line)
+        return out.setdefault(key(m), {}) if m else None
+
+    for line in log.splitlines():
+        if "Compiling entry" in line:      # then its "Used N registers"
+            compiling = find(line)
+        elif "Function properties" in line:  # then its stack and spills
+            props = find(line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and props is not None:
+            props.update(stack=int(m[1]), spill_stores=int(m[2]),
+                         spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and compiling is not None:
+            compiling["registers"] = int(m[1])
+    return out
+
+
 def build_all(consts) -> list:
     """`build` for several models at once, one nvcc process each, all
     started together; returns their paths in order."""
@@ -241,6 +270,11 @@ def _load(c: SubstepConstants, device: torch.device, lanes: int | None):
     lib.substep_launch.restype = ctypes.c_int
     lib.substep_error_string.argtypes = [ctypes.c_int]
     lib.substep_error_string.restype = ctypes.c_char_p
+    if c.has_servo:
+        lib.ee_state_launch.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int] + [ctypes.c_float] * 3 + [ctypes.c_int,
+                                                   ctypes.c_void_p]
+        lib.ee_state_launch.restype = ctypes.c_int
     block = model_block(c)
     if lib.substep_model_bytes() != ctypes.sizeof(block):
         raise RuntimeError("struct SubstepModel layout differs from its "
@@ -270,7 +304,8 @@ class SubstepKernel:
     new (qpos, qvel). Builds and loads the kernel when constructed;
     `lanes` overrides `lanes_for` (threads per env: 8, 16 or 32).
 
-    `launches` counts the kernel launches made through this object.
+    `launches` counts the substep launches made through this object,
+    `ee_launches` those of `ee_state` (Panda builds only).
     """
 
     def __init__(self, model, device: str | torch.device = "cuda",
@@ -290,13 +325,16 @@ class SubstepKernel:
             raise RuntimeError("this model's kernel is loaded on "
                                f"{self._lib.device}, not {self.device}")
         self.launches = 0
+        self.ee_launches = 0
 
-    def __call__(self, qpos: torch.Tensor, qvel: torch.Tensor,
-                 ctrl: torch.Tensor):
+    def _check(self, **inputs):
+        """Each input float32 [B, width], contiguous, on the kernel's
+        device; returns B."""
         c = self.consts
-        B = qpos.shape[0]
-        for name, t, w in (("qpos", qpos, c.nq), ("qvel", qvel, c.nv),
-                           ("ctrl", ctrl, c.nu)):
+        widths = {"qpos": c.nq, "qvel": c.nv, "ctrl": c.nu}
+        B = inputs["qpos"].shape[0]
+        for name, t in inputs.items():
+            w = widths[name]
             if t.device != self.device:
                 raise ValueError(f"{name} is on {t.device}, the kernel on "
                                  f"{self.device}")
@@ -305,15 +343,46 @@ class SubstepKernel:
                                  f"{t.dtype} {tuple(t.shape)}")
             if not t.is_contiguous():
                 raise ValueError(f"{name} must be contiguous")
+        return B
+
+    def _raise_on(self, err: int, what: str):
+        if err:
+            raise RuntimeError(f"{what} launch failed: "
+                               + self._lib.substep_error_string(
+                                   err).decode())
+
+    def __call__(self, qpos: torch.Tensor, qvel: torch.Tensor,
+                 ctrl: torch.Tensor):
+        B = self._check(qpos=qpos, qvel=qvel, ctrl=ctrl)
         qpos_out = torch.empty_like(qpos)
         qvel_out = torch.empty_like(qvel)
         stream = torch.cuda.current_stream(self.device).cuda_stream
         err = self._lib.substep_launch(
             qpos.data_ptr(), qvel.data_ptr(), ctrl.data_ptr(),
             qpos_out.data_ptr(), qvel_out.data_ptr(), B, stream)
-        if err:
-            raise RuntimeError("substep launch failed: "
-                               + self._lib.substep_error_string(
-                                   err).decode())
+        self._raise_on(err, "substep")
         self.launches += 1
         return qpos_out, qvel_out
+
+    def ee_state(self, qpos: torch.Tensor, qvel: torch.Tensor, hand: int,
+                 offset):
+        """The end effector's world position and linear velocity
+        [B, 6] = [p_ee, v_ee] of (qpos [B, nq], qvel [B, nv]): the point
+        `offset` (3 floats, in the frame of body `hand`), in one launch of
+        `ee_state_kernel` on the current stream (a Panda build's second
+        entry; `envs/panda.py:PandaTaskEnv._ee_state`)."""
+        if not self.consts.has_servo:
+            raise ValueError("ee_state: this model's build has no "
+                             "end-effector entry (no servos)")
+        if not 0 <= hand < self.consts.nb:
+            raise ValueError(f"ee_state: body {hand} of {self.consts.nb}")
+        B = self._check(qpos=qpos, qvel=qvel)
+        out = torch.empty((B, 6), dtype=torch.float32, device=self.device)
+        ox, oy, oz = (float(x) for x in offset)
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        err = self._lib.ee_state_launch(
+            qpos.data_ptr(), qvel.data_ptr(), out.data_ptr(), hand, ox, oy,
+            oz, B, stream)
+        self._raise_on(err, "ee_state")
+        self.ee_launches += 1
+        return out

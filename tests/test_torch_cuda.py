@@ -181,6 +181,113 @@ def test_lane_counts_agree_bitwise(card, name):
             assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
+def _limit_states(c, B, seed, device):
+    """Panda states with every joint uniform within its limits and
+    velocities U(-2, 2)."""
+    rng = np.random.RandomState(seed)
+    qadr = np.asarray(c.qposadr)[np.asarray(c.dof_body)]
+    qpos = np.zeros((B, c.nq), np.float32)
+    qpos[:, qadr] = rng.uniform(c.lim_lo, c.lim_hi, (B, c.nv))
+    qvel = rng.uniform(-2, 2, (B, c.nv)).astype(np.float32)
+    return torch.tensor(qpos, device=device), torch.tensor(qvel,
+                                                           device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["DrawerMulti", "Reach"])
+def test_ee_state_kernel_matches_kinematics(card, task):
+    """`SubstepKernel.ee_state` at 4096 envs against the `Kinematics` path
+    (`Arm.ee_state`): p_ee within 1e-5, v_ee within 1e-4; one launch,
+    counted apart from the substep's."""
+    from ddiffpg_tpu_torch.physics.panda import Arm
+    from ddiffpg_tpu_torch.physics.substep_cuda import SubstepKernel
+
+    m, meta, c = _model(task)
+    kern = SubstepKernel(c, device=card)
+    arm = Arm(m, meta, card)
+    for qpos, qvel in (_limit_states(c, 4096, 0, card),
+                       chip_smoke.panda_states(m, meta, 4096, 1, card)[:2]):
+        out = kern.ee_state(qpos, qvel, arm.hand, arm.ee_offset_host)
+        want = arm.ee_state(qpos, qvel)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out[:, :3], want[0], atol=1e-5, rtol=0)
+        torch.testing.assert_close(out[:, 3:], want[1], atol=1e-4, rtol=0)
+    assert (kern.ee_launches, kern.launches) == (2, 0)
+    with pytest.raises(ValueError):
+        kern.ee_state(qpos[:, 1:].contiguous(), qvel, arm.hand,
+                      arm.ee_offset_host)
+    assert kern.ee_launches == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["DrawerMulti", "Reach"])
+def test_env_step_ee_state_kernel_matches_plain(card, task, monkeypatch):
+    """A whole `step_batched` of 4096 envs on the kernel route against the
+    same step with `_ee_state` on the plain `Kinematics` path, from one
+    state and with the same reset noise: obs' ee position within 1e-5,
+    its velocity within 1e-4, the rest and the next state equal; reward,
+    done and success bitwise. The step makes one ee-state launch."""
+    from ddiffpg_tpu_torch.envs.panda import PandaTaskEnv
+
+    env = PandaTaskEnv(task, random_init_pos=True, device=card, seed=3)
+    B = 4096
+    state, _ = env.reset_batched(B)
+    g = torch.Generator(device=card).manual_seed(4)
+    for _ in range(3):   # moving arms, some envs in their last step
+        action = torch.rand((B, env.action_dim), generator=g,
+                            device=card) * 2 - 1
+        state, *_ = env.step_batched(state, action)
+    state = state._replace(t=torch.randint(
+        90, 100, (B,), generator=g, device=card, dtype=torch.int32))
+    noise = torch.rand((B, 7), generator=g, device=card) * 0.2 - 0.1
+    env.kernel.ee_launches = 0
+    got = env.step_batched(state, action, noise)
+    assert env.kernel.ee_launches == 1
+    monkeypatch.setattr(env, "_ee_state", env.arm.ee_state)
+    want = env.step_batched(state, action, noise)
+    torch.cuda.synchronize()
+    assert env.kernel.ee_launches == 1
+    (s1, o1, r1, d1, i1), (s2, o2, r2, d2, i2) = got, want
+    torch.testing.assert_close(o1[:, :3], o2[:, :3], atol=1e-5, rtol=0)
+    torch.testing.assert_close(o1[:, 3:6], o2[:, 3:6], atol=1e-4, rtol=0)
+    assert torch.equal(o1[:, 6:], o2[:, 6:])
+    for a, b in ((r1, r2), (d1, d2), (i1["success"], i2["success"]),
+                 (i1["time_outs"], i2["time_outs"]), *zip(s1, s2)):
+        assert torch.equal(a, b)
+    assert bool(d1.any()) and bool(torch.isfinite(o1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ant", "DrawerMulti"])
+def test_substep_kernel_ptxas_without_ee_state(card, name, tmp_path):
+    """The ee-state entry leaves the substep kernel's code as it was:
+    ptxas reports the same registers, stack frame and spills for
+    `substep_kernel` with the entry and with its two blocks (the kernel,
+    its shared-memory set-up) cut from the source; the ant's build has no
+    `ee_state_kernel`."""
+    import re
+
+    from ddiffpg_tpu_torch.physics import substep_cuda as sc
+
+    _, _, c = _model(name)
+    src = sc.SOURCE.read_text()
+    block = (r"#if HAS_SERVO  // ---- the end-effector state\n.*?"
+             r"#endif  // HAS_SERVO: the end-effector state\n")
+    cut, n = re.subn(block, "", src, flags=re.S)
+    assert n == 2
+    (tmp_path / "substep_cut.cu").write_text(cut)
+    libs = (sc.build(c), sc.compile_library(
+        sc._nvcc(), sc.NVCC_FLAGS + tuple(sc.defines(c)),
+        tmp_path / "substep_cut.cu", "substep_cut", bytes(sc.model_block(c))))
+    full, without = (sc.ptxas_report(lib.with_suffix(".log").read_text())
+                     for lib in libs)
+    assert set(full["substep_kernel"]) == {"registers", "stack",
+                                           "spill_stores", "spill_loads"}
+    assert full["substep_kernel"] == without["substep_kernel"]
+    assert ("ee_state_kernel" in full) == (name != "ant")
+    assert "ee_state_kernel" not in without
+
+
 def _card_agent(card, num_envs=64, **over):
     """DDiffPG on antmaze-v1 on the card, the stock config at `num_envs`
     envs (`over` overrides), with a replay that holds one flushed

@@ -26,7 +26,7 @@ torch = pytest.importorskip("torch")
 import chip_smoke  # noqa: E402
 from ddiffpg_tpu_torch.envs.antmaze import AntMazeEnv  # noqa: E402
 from ddiffpg_tpu_torch.physics import substep_cuda  # noqa: E402
-from ddiffpg_tpu_torch.physics.panda import build_panda_scene  # noqa: E402
+from ddiffpg_tpu_torch.physics.panda import Arm, build_panda_scene  # noqa: E402
 from ddiffpg_tpu_torch.physics.substep import (  # noqa: E402
     SubstepConstants, substep_reference)
 
@@ -114,6 +114,38 @@ def test_host_kernel_matches_plain(host_builds, name, batch):
     np.testing.assert_allclose(got[0], want[0].numpy(), atol=tq, rtol=0)
     np.testing.assert_allclose(got[1], want[1].numpy(), atol=tv, rtol=0)
     assert np.isfinite(got[0]).all() and np.isfinite(got[1]).all()
+
+
+@pytest.mark.parametrize("name", MODELS[1:])
+def test_host_ee_state_matches_kinematics(host_builds, name):
+    """The Panda builds' second entry, `ee_state_host`, against the
+    `Kinematics` path of `PandaTaskEnv._ee_state` (`Arm.ee_state`) on 8
+    states with every joint within its limits and nonzero velocities:
+    p_ee within 1e-5 and v_ee within 1e-4, the host libm's `sinf` against
+    torch's (the card's within the same bounds). The ant's build has no
+    such entry."""
+    m, meta, c, lib = host_builds[name]
+    rng = np.random.RandomState(len(name))
+    assert c.nq == c.nv          # hinges and slides: one qpos a dof
+    qadr = np.asarray(c.qposadr)[np.asarray(c.dof_body)]
+    qpos = np.zeros((B, c.nq), np.float32)
+    qpos[:, qadr] = rng.uniform(c.lim_lo, c.lim_hi, (B, c.nv))
+    qvel = rng.uniform(-2, 2, (B, c.nv)).astype(np.float32)
+    arm = Arm(m, meta, "cpu")
+    want = arm.ee_state(torch.tensor(qpos), torch.tensor(qvel))
+    got = np.empty((B, 6), np.float32)
+    block = substep_cuda.model_block(c)
+    lib.ee_state_host.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] + [ctypes.c_float] * 3 + [ctypes.c_int]
+    lib.ee_state_host(ctypes.addressof(block), qpos.ctypes.data,
+                      qvel.ctypes.data, got.ctypes.data, arm.hand,
+                      *arm.ee_offset_host, B)
+    np.testing.assert_allclose(got[:, :3], want[0].numpy(), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_allclose(got[:, 3:], want[1].numpy(), atol=1e-4,
+                               rtol=0)
+    assert np.abs(want[1].numpy()).max() > 0.1
+    assert not hasattr(host_builds["ant"][3], "ee_state_host")
 
 
 @pytest.mark.parametrize("name", MODELS)
