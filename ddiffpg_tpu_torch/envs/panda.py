@@ -181,12 +181,14 @@ class PandaTaskEnv:
         then the 2 fingers."""
         action = torch.clamp(action, -1.0, 1.0)
         if self.control_type == "ee":
-            body_pos, body_quat = self.arm.kin.fk(qpos)
-            p_ee = self.arm.ee_position(body_pos, body_quat)
-            target_p = p_ee + action[:, :3] * 0.05
-            target_p = torch.cat([target_p[:, :2],
-                                  torch.clamp_min(target_p[:, 2:], 0.0)], -1)
-            target_q = self.arm.dls_ik(qpos, target_p)
+            with trace.span("ik"):
+                body_pos, body_quat = self.arm.kin.fk(qpos)
+                p_ee = self.arm.ee_position(body_pos, body_quat)
+                target_p = p_ee + action[:, :3] * 0.05
+                target_p = torch.cat(
+                    [target_p[:, :2], torch.clamp_min(target_p[:, 2:], 0.0)],
+                    -1)
+                target_q = self.arm.dls_ik(qpos, target_p)
         else:
             target_q = qpos[:, self.arm_adr] + action[:, :7] * 0.05
         target_q = torch.clamp(target_q, self.q_lo, self.q_hi)

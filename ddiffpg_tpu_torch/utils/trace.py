@@ -14,7 +14,8 @@ the profiler session that runs keeps the spans and writes them out
 The spans, parent first: `train_step` (`AgentDDiffPG.train_iter`) >
 `env_step` (`_env_step`) > `actor` (`explore_actions`), `env`
 (`VecEnv.step`) > `physics` (`envs/base.py:step_physics`) and, on Panda,
-`ee_state` (`PandaTaskEnv._ee_state`), then `replay_add`
+`ee_state` (`PandaTaskEnv._ee_state`), with the `ee` control first `ik`
+(`PandaTaskEnv._ctrl_from_action`'s FK, target and DLS IK), then `replay_add`
 (`replay/episodic.py:add`); `train_step` > `update_pass` (`update_once`) >
 its seven parts (`sample`, `NovelD reward`, `target actions`,
 `critic update`, `action gradient`, `actor loss and step`, `RND update`);

@@ -191,3 +191,36 @@ def test_mark_keeps_its_names_and_order(agents, algo, on):
     called = []
     agents[algo] = (agent, agent.update_once(ts, mark=called.append)[0])
     assert called == PARTS[algo]
+
+
+@pytest.mark.parametrize("name,n_ik", [("PandaDrawerMulti-v3", 1),
+                                       ("PandaDrawerMultiJoints-v3", 0)],
+                         ids=["ee", "joints"])
+def test_panda_step_ik_span_encloses_the_ik(monkeypatch, name, n_ik):
+    # one env step at B = 4: the `ee` control records one `ik` span, which
+    # encloses the control's FK and the DLS IK (probed by ranges of their
+    # own) and closes before the physics; the joints control records none
+    monkeypatch.setattr(env_base, "substep_reference",
+                        lambda consts, qpos, qvel, ctrl: (qpos, qvel))
+    env = make(name, num_envs=4, device="cpu")
+    arm = env.env.arm
+    for obj, fn in ((arm, "dls_ik"), (arm.kin, "fk")):
+        def probed(*a, _f=getattr(obj, fn), _n=fn, **k):
+            with torch.profiler.record_function(trace.PREFIX + "probe " + _n):
+                return _f(*a, **k)
+        monkeypatch.setattr(obj, fn, probed)
+    state, _ = env.reset()
+    action = torch.rand((4, env.action_dim),
+                        generator=torch.Generator().manual_seed(0)) * 2 - 1
+    _, spans = _profiled(lambda: env.step(state, action))
+    ik = [s for s in spans if s[0] == "ik"]
+    assert len(ik) == n_ik
+    kids = _children(spans)
+    if n_ik:
+        # the control's FK, then dls_ik with an FK in each of its 3 steps
+        assert kids["ik"] == ["probe fk", "probe dls_ik"]
+        assert kids["probe dls_ik"] == ["probe fk"] * 3
+        physics = [s for s in spans if s[0] == "physics"]
+        assert ik[0][2] <= physics[0][1]
+    assert kids["env"] == ["ik"] * n_ik + ["physics", "ee_state"]
+    assert "probe dls_ik" not in kids[None] + kids["env"]
