@@ -7,7 +7,8 @@ Builds the CUDA substep kernel from this checkout for the ant and the four
 Panda scenes (one nvcc per model, all started together; the DTW kernel at
 phase 10), holds every build
 to its plain PyTorch version on the card (the Panda builds' ee-state entry
-to `Arm.ee_state`), drives DDiffPG's collect path at
+to `Arm.ee_state`, their IK entry bit for bit to `Arm.ee_point` and
+`Arm.dls_ik`), drives DDiffPG's collect path at
 4096 envs with a stock-width diffusion policy (random weights from a seed)
 on antmaze-v1, PandaDrawerMultiJoints-v3 and PandaReachJoints-v3, and
 probes the goals. A collect step and its parts are timed on the host clock
@@ -319,6 +320,26 @@ def ee_state_bound(arm: Arm, qpos, qvel):
     return max(t_ops, t_bytes) * 1e3, by, counter.ops
 
 
+def dls_ik_bound(arm: Arm, qpos, target, iters: int = 3):
+    """(bound ms, what sets it, flops per env) of one IK launch on these
+    inputs: the larger of the plain `Arm.dls_ik`'s ops on [B] rows
+    (counted as the benchmark's `ik_bound` counts them) over the card's
+    fp32 peak and the bytes that must move (qpos and the target read once,
+    the 7 arm targets written once) over its HBM rate. The plain FK walks
+    every body, drawers and fingers too, where the entry's point needs only
+    the hand's ancestors, so the count is above the entry's own work."""
+    from benchmark.harness.ik_bound import IKOpCounter
+
+    B = qpos.shape[0]
+    counter = IKOpCounter(B)
+    with counter:
+        arm.dls_ik(qpos, target, iters)
+    t_ops = counter.ops * B / PEAK_FP32_FLOPS
+    t_bytes = 4 * B * (qpos.shape[1] + 3 + 7) / PEAK_HBM_BYTES
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes) * 1e3, by, counter.ops
+
+
 def ant_states(init_qpos: np.ndarray, B: int, seed: int, wall: bool,
                device="cuda"):
     """Random ant states as tests/test_pallas.py draws them; with `wall`,
@@ -469,6 +490,48 @@ def check_ee_state(kern: SubstepKernel, arm: Arm, qpos, qvel, label: str,
     return max(ep, ev)
 
 
+def ik_inputs(arm: Arm, qpos, seed: int):
+    """Targets [B, 3] as the `ee` control sets them: the ee point of qpos
+    moved by U(-0.05, 0.05) on each axis."""
+    g = torch.Generator(device=qpos.device).manual_seed(seed)
+    step = torch.rand((qpos.shape[0], 3), generator=g,
+                      device=qpos.device) * 0.1 - 0.05
+    return arm.ee_point(qpos) + step
+
+
+def check_dls_ik(kern: SubstepKernel, arm: Arm, qpos, target, label: str,
+                 phase: str):
+    """The kernel's IK entry (`ee_point`, `dls_ik`) against the plain
+    `Arm.ee_point` and `Arm.dls_ik` at NUM_ENVS rows (`arm` holds no
+    kernel): bit for bit, as the `ee` control's servos need; the launches
+    at BASELINE_ENVS and EVAL_ENVS rows must give the largest one's first
+    rows bit for bit. Returns the largest error."""
+    args = (arm.arm_body_host, arm.hand, arm.ee_offset_host, 3, 0.05)
+    got = kern.dls_ik(qpos, target, *args)
+    got_p = kern.ee_point(qpos, arm.hand, arm.ee_offset_host)
+    want = arm.dls_ik(qpos, target)
+    want_p = arm.ee_point(qpos)
+    torch.cuda.synchronize()
+    err = max(float((got - want).abs().max()),
+              float((got_p - want_p).abs().max()))
+    ok = (torch.equal(got, want) and torch.equal(got_p, want_p)
+          and bool(torch.isfinite(got).all()))
+    log(phase, f"{label} DLS IK B={NUM_ENVS}: max|err| of the arm targets "
+        f"and the ee point {err:.3e} (bit for bit: {ok})")
+    if not ok:
+        raise RuntimeError("IK kernel disagrees with Arm.dls_ik")
+    for B in (BASELINE_ENVS, EVAL_ENVS):
+        small = kern.dls_ik(qpos[:B].contiguous(), target[:B].contiguous(),
+                            *args)
+        same = torch.equal(small, got[:B])
+        log(phase, f"{label} DLS IK B={B}: bitwise the B={NUM_ENVS} "
+            f"launch's first rows {same}")
+        if not same:
+            raise RuntimeError(f"{label} DLS IK: B={B} rows differ from "
+                               f"B={NUM_ENVS} rows")
+    return err
+
+
 def check_collect(env, roll, state, t_before, n_steps: int, what: str):
     """Finite records of the right shapes, actions in [-1, 1], and
     auto-reset: an env's clock restarts at 0 on the step it finished.
@@ -523,10 +586,11 @@ def timed_collect(actor: Actor, env, kernel: SubstepKernel, n_steps: int,
                   what: str):
     """Reset with staggered episode clocks (so truncation and auto-reset
     fall inside the window), one warm-up step, then `n_steps` timed control
-    steps with the kernel's counts (`launches`, `ee_launches`) set to 0
-    just before and read just after: a Panda kernel must have launched its
-    ee state once a step too. Returns (state, obs, rollout, seconds,
-    launches, envs reset)."""
+    steps with the kernel's counts (`launches`, `ee_launches`,
+    `ik_launches`) set to 0 just before and read just after: a Panda
+    kernel must have launched its ee state once a step too, and under the
+    `ee` control its IK entry twice a step (the ee point, the IK).
+    Returns (state, obs, rollout, seconds, launches, envs reset)."""
     state, obs = env.reset()
     t_start = torch.randint(0, env.max_episode_length, (env.num_envs,),
                             generator=actor.gen, device="cuda",
@@ -534,7 +598,7 @@ def timed_collect(actor: Actor, env, kernel: SubstepKernel, n_steps: int,
     state, obs, _ = actor.collect(env, state._replace(t=t_start), obs, 1)
     t_before = state.t.clone()
     torch.cuda.synchronize()
-    kernel.launches = kernel.ee_launches = 0
+    kernel.launches = kernel.ee_launches = kernel.ik_launches = 0
     t0 = time.time()
     state, obs, roll = actor.collect(env, state, obs, n_steps)
     torch.cuda.synchronize()
@@ -543,6 +607,10 @@ def timed_collect(actor: Actor, env, kernel: SubstepKernel, n_steps: int,
     if launches != n_steps:
         raise RuntimeError(f"{what}: collect launched the kernel {launches} "
                            "times")
+    ik = kernel.ik_launches
+    ee_ctrl = getattr(env.env, "control_type", None) == "ee"
+    if ik != (2 * n_steps if ee_ctrl else 0):
+        raise RuntimeError(f"{what}: collect launched the IK {ik} times")
     ee = kernel.ee_launches
     if ee != (n_steps if kernel.consts.has_servo else 0):
         raise RuntimeError(f"{what}: collect launched the ee state {ee} "
@@ -1544,6 +1612,7 @@ def panda_ee_phase(smi: str, cfg: Config):
     state, obs, roll, secs, drawer_n, n_reset = timed_collect(
         actor, env, drawer.kernel, N_STEPS, "PandaDrawerMulti-v3")
     drawer_ee = drawer.kernel.ee_launches
+    drawer_ik = drawer.kernel.ik_launches
     log("12 panda ee", f"DrawerMulti (ee, 4-D actions) collect {N_STEPS} "
         f"steps x {NUM_ENVS} envs: {secs:.3f} s, "
         f"{NUM_ENVS * N_STEPS / secs:.0f} env steps/s, kernel launches "
@@ -1586,7 +1655,7 @@ def panda_ee_phase(smi: str, cfg: Config):
         "recluster (use_downsampling)", use_downsampling=True)
     launches = {"drawer": drawer_n, "reach": reach_n
                 + train["kernel_launches"], "drawer_ee": drawer_ee,
-                "reach_ee": reach_ee}
+                "reach_ee": reach_ee, "drawer_ik": drawer_ik}
     return rec, launches, split, dtw_n
 
 
@@ -2840,6 +2909,20 @@ def main() -> int:
             f"{ee_ms[task]:.4f} ms, plain PyTorch {ee_plain_ms[task]:.2f} "
             f"ms, bound {ee_bound[task][0]:.6f} ms ({ee_bound[task][1]}, "
             f"{ee_bound[task][2]} flops per env) [{smi}]")
+    # the third entry, the ee control's DLS IK, against Arm.dls_ik
+    m, meta = scenes["DrawerMulti"]
+    kern, arm = pk[("DrawerMulti", 20)], Arm(m, meta, "cuda")
+    qp = panda_states(m, meta, NUM_ENVS, 1)[0]
+    tg = ik_inputs(arm, qp, 1)
+    ik_err = check_dls_ik(kern, arm, qp, tg, "DrawerMulti", "3p panda")
+    ik_args = (arm.arm_body_host, arm.hand, arm.ee_offset_host, 3, 0.05)
+    ik_ms = cuda_ms(lambda: kern.dls_ik(qp, tg, *ik_args), 50)
+    ik_plain_ms = cuda_ms(lambda: arm.dls_ik(qp, tg), 5)
+    ik_bound = dls_ik_bound(arm, qp, tg)
+    log("3p panda", f"DrawerMulti DLS IK (3 iterations) at B={NUM_ENVS}: "
+        f"kernel {ik_ms:.4f} ms, plain PyTorch {ik_plain_ms:.2f} ms, bound "
+        f"{ik_bound[0]:.6f} ms ({ik_bound[1]}, {ik_bound[2]} flops per env)"
+        f" [{smi}]")
 
     stamp("phases 3-3p (kernels vs plain)")
 
@@ -3040,6 +3123,9 @@ def main() -> int:
                      reach_ee + ee_launches["reach_ee"], ee_err["Reach"],
                      ee_ms["Reach"], ee_plain_ms["Reach"], ee_bound["Reach"],
                      replaces="ddiffpg_tpu/envs/panda.py:66"),
+        kernel_entry("dls_ik_panda_drawermulti", ee_launches["drawer_ik"],
+                     ik_err, ik_ms, ik_plain_ms, ik_bound,
+                     replaces="ddiffpg_tpu/physics/panda.py:251"),
         *[kernel_entry(f"substep_{name.replace('-', '_')}",
                        maze_launches[name], err, ms, plain_ms, bound)
           for name, err, ms, plain_ms, bound in maze_entries],

@@ -16,9 +16,10 @@
 //   damping, limit springs -> Cholesky solve -> semi-implicit integration
 //   with clamps and inelastic limit stops.
 // physics/substep.py:check_supported guards the class. The Panda builds
-// (HAS_SERVO) carry a second entry, ee_state_kernel (after
-// substep_kernel): the end effector's position and velocity from the
-// substep's first phases.
+// (HAS_SERVO) carry two more entries after substep_kernel: ee_state_kernel,
+// the end effector's position and velocity from the substep's first
+// phases, and dls_ik_kernel, the `ee` control's damped-least-squares IK
+// (physics/panda.py:Arm.dls_ik), whose iterations run the same FK phases.
 //
 // Design. An env's work is spread over a group of LANES threads (8, 16 or
 // 32, a compile-time define; physics/substep_cuda.py:lanes_for picks 16,
@@ -181,6 +182,12 @@ struct Slice {
     struct {  // CRBA, solve, integration
       float L[NLT], dg[NV], y[NV], ud[NV], un[NV];  // dg: L's diagonal
     } k;
+#if HAS_SERVO
+    struct {  // dls_ik_kernel: the ee point and the Jacobian's columns (by
+              // body); never the union's largest member (RNEA's is 18 NB)
+      float p[3], J[NB][3];
+    } ik;
+#endif
   } w;
 };
 
@@ -1258,6 +1265,247 @@ extern "C" int ee_state_launch(const float* qpos, const float* qvel,
 #endif
 #endif  // HAS_SERVO: the end-effector state
 
+#if HAS_SERVO  // ---- the DLS IK
+// A third entry, for the Panda builds only: the `ee` control's
+// damped-least-squares IK (physics/panda.py:Arm.dls_ik) and the end
+// effector's point it starts from (Arm.ee_point), launched from there
+// wherever the env steps through this kernel: two launches a control step
+// (the point, then the IK) in place of some 3,500 small PyTorch kernels of
+// Kinematics.fk, Arm.ee_jacobian and the 3x3 solves. It replaces no TPU
+// kernel: the JAX package computes the IK in XLA.
+//
+// Each env is one group of LANES threads on its Slice, as in the other
+// entries: it loads q, then for each of `iters` iterations (one pass with
+// no step when `iters` is 0)
+//   hinge rotations (per body), then FK of the hand's ancestors (lane 0);
+//   p = pos[hand] + rotate(quat[hand], off), written out after the first
+//     FK when asked (the point at qpos); per arm body k, in body order,
+//     J_k = rotate(quat[k], axis[k]) x (p - pos[k]);
+//   every lane: A = J J^T + damp2 I, with A's columns a0, a1, a2:
+//     c0 = a1 x a2, c1 = a2 x a0, c2 = a0 x a1, det = a0 . c0,
+//     x = [c0 . err, c1 . err, c2 . err] / det, err = target - p; then per
+//     arm body k: q[qposadr[k]] += clip(J_k . x, -0.2, 0.2);
+// and writes the arm's q. The arm is the bitmask `arm` of bodies (Arm's
+// links, hinges), joint k its k-th set bit; `hand` and `off` name the end
+// effector (the tcp, or PegInsertion's peg tip), so nothing branches on
+// the task. Every lane computes the same solve from the same shared values,
+// which saves the barrier one lane's solve would need before the steps.
+//
+// Numerics: the stiff, force-limited servos turn a one-ulp change of an arm
+// target into an ee velocity a tenth apart one control step later (PERF.md),
+// so the entry computes what the plain PyTorch computes on the card bit for
+// bit, op for op in Kinematics.fk's and dls_ik's order, each op rounded as
+// torch's kernel for it rounds: a cross product component is one fused
+// multiply-add (ATen's cross kernel is built with contraction: tcross);
+// J J^T is cuBLAS's chain of fused multiply-adds over k from zero; a sum of
+// 3 elements adjacent in memory adds elements 0 and 2, then 1 (tsum3), and
+// so does J^T x's sum over J's rows (J is a transposed view of the
+// columns); everything else, one rounding an op (this file builds with
+// -fmad=false). FK therefore has its own phase here (the substep's rotates
+// with unfused cross products and skips identity rotations). The hinge
+// axes are unit vectors, so Kinematics' normalisation of them is exact.
+// Found with torch 2.11 and CUDA 12.8 on an H100; the card tests in
+// tests/test_torch_cuda.py hold the entry to the plain route bit for bit,
+// and fail where a later torch rounds otherwise.
+//
+// What bounds it: the serial FK chain of each env, `iters` times (~7,500
+// flops an env for 3 iterations against ~100 bytes moved); one group an env
+// keeps FK on the Slice and the substep's layout, and an env's IK has too
+// little parallel work to spread wider. The preamble is written out again,
+// as in ee_state_kernel; IK_PHASE is its own macro, which
+// tools/phase_clocks.py does not rewrite.
+#ifdef SUBSTEP_HOST
+#define IK_PHASE(call) \
+  for (int lane = 0; lane < LANES; ++lane) call
+#else
+#define IK_PHASE(call) \
+  do {                 \
+    call;              \
+    __syncwarp(mask);  \
+  } while (0)
+#endif
+
+// torch.linalg.cross on the card
+__device__ __forceinline__ V3 tcross(V3 a, V3 b) {
+  return mk(fmaf(a.y, b.z, -(a.z * b.y)), fmaf(a.z, b.x, -(a.x * b.z)),
+            fmaf(a.x, b.y, -(a.y * b.x)));
+}
+// physics/quat.py:rotate on the card
+__device__ __forceinline__ V3 trot(Q4 q, V3 v) {
+  const V3 qv = mk(q.x, q.y, q.z);
+  const V3 t = vscale(tcross(qv, v), 2.0f);
+  return vadd(vadd(v, vscale(t, q.w)), tcross(qv, t));
+}
+// (a * b).sum(-1) of rows of 3 on the card (its reduction's two
+// accumulators)
+__device__ __forceinline__ float tsum3(V3 a, V3 b) {
+  return (a.x * b.x + a.z * b.z) + a.y * b.y;
+}
+
+// Kinematics.fk for the hand's ancestors, in body order
+__device__ void ph_ik_fk(PHASE_ARGS, int hand) {
+  if (lane != 0) return;
+#pragma unroll 1
+  for (int i = 0; i < NB; ++i) {
+    if (!((m.anc_mask[hand] >> i) & 1)) continue;
+    const int t = m.jnt_type[i], qa = m.qposadr[i], p = m.parent[i];
+    V3 pn;
+    Q4 qn;
+    if (t == J_FREE) {
+      pn = mk(s.q[qa], s.q[qa + 1], s.q[qa + 2]);
+      qn = ldq(s.q + qa + 3);
+    } else {
+      V3 pp = mk(0.0f, 0.0f, 0.0f);
+      Q4 pq;
+      pq.w = 1.0f;
+      pq.x = pq.y = pq.z = 0.0f;
+      if (p >= 0) {
+        pp = ld3(s.pos[p]);
+        pq = ldq(s.quat[p]);
+      }
+      pn = vadd(pp, trot(pq, ld3(m.body_pos[i])));
+      qn = qmul(pq, ldq(m.body_quat[i]));
+      if (t == J_HINGE)  // the anchor is the body origin: no shift
+        qn = qmul(qn, ldq(s.w.qj[i]));
+      else if (t == J_SLIDE)
+        pn = vadd(pn, vscale(trot(qn, ld3(m.axis[i])), s.q[qa]));
+    }
+    st3(s.pos[i], pn);
+    stq(s.quat[i], qn);
+  }
+}
+
+// the end effector's point p (to p_out when given) and the arm's Jacobian
+// columns
+__device__ void ph_ik_jacobian(PHASE_ARGS, unsigned arm, int hand, V3 off,
+                               float* p_out) {
+  const V3 p = vadd(ld3(s.pos[hand]), trot(ldq(s.quat[hand]), off));
+  if (lane == 0) {
+    st3(s.w.ik.p, p);
+    if (p_out) st3(p_out, p);
+  }
+  FOR_LANE(i, NB) {
+    if (!((arm >> i) & 1u)) continue;
+    const V3 w = trot(ldq(s.quat[i]), ld3(m.axis[i]));
+    st3(s.w.ik.J[i], tcross(w, vsub(p, ld3(s.pos[i]))));
+  }
+}
+
+// the damped 3x3 system solved in closed form, then each arm joint's step
+__device__ void ph_ik_step(PHASE_ARGS, unsigned arm, const float* tgt,
+                           float damp2) {
+  float a[3][3] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+#pragma unroll 1
+  for (int i = 0; i < NB; ++i) {
+    if (!((arm >> i) & 1u)) continue;
+    const float* j = s.w.ik.J[i];
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) a[r][c] = fmaf(j[r], j[c], a[r][c]);
+  }
+  for (int r = 0; r < 3; ++r) a[r][r] = a[r][r] + damp2;
+  const V3 a0 = mk(a[0][0], a[1][0], a[2][0]);  // A's columns
+  const V3 a1 = mk(a[0][1], a[1][1], a[2][1]);
+  const V3 a2 = mk(a[0][2], a[1][2], a[2][2]);
+  const V3 c0 = tcross(a1, a2), c1 = tcross(a2, a0), c2 = tcross(a0, a1);
+  const float det = tsum3(a0, c0);
+  const V3 err = vsub(ld3(tgt), ld3(s.w.ik.p));
+  const V3 x = mk(tsum3(c0, err) / det, tsum3(c1, err) / det,
+                  tsum3(c2, err) / det);
+  FOR_LANE(i, NB) {
+    if (!((arm >> i) & 1u)) continue;
+    const int qa = m.qposadr[i];
+    s.q[qa] = s.q[qa] + clipp(tsum3(ld3(s.w.ik.J[i]), x), -0.2f, 0.2f);
+  }
+}
+
+__device__ void dls_ik_group(const SubstepModel& m, Slice& s, int lane,
+                             unsigned mask, unsigned arm, int hand, V3 off,
+                             const float* tgt, int iters, float damp2,
+                             float* q_out, float* p_out) {
+  (void)mask;
+  const int passes = iters > 0 ? iters : 1;
+#pragma unroll 1
+  for (int it = 0; it < passes; ++it) {
+    IK_PHASE(ph_hinge_rot(m, s, lane));
+    IK_PHASE(ph_ik_fk(m, s, lane, hand));
+    IK_PHASE(ph_ik_jacobian(m, s, lane, arm, hand, off,
+                            it == 0 ? p_out : nullptr));
+    if (it < iters) IK_PHASE(ph_ik_step(m, s, lane, arm, tgt, damp2));
+  }
+  if (lane != 0 || !q_out) return;
+  int k = 0;
+  for (int i = 0; i < NB; ++i)
+    if ((arm >> i) & 1u) q_out[k++] = s.q[m.qposadr[i]];
+}
+
+// q_out [B, popcount(arm)] and p_out [B, 3] may each be null; target is
+// read only when iters > 0.
+#ifdef SUBSTEP_HOST
+extern "C" void dls_ik_host(const void* model, const float* qpos,
+                            const float* target, float* q_out, float* p_out,
+                            unsigned arm, int hand, float ox, float oy,
+                            float oz, int iters, float damp2, int B) {
+  SubstepModel m;
+  memcpy(&m, model, sizeof(SubstepModel));
+  Slice s;
+  const int n_arm = __builtin_popcount(arm);
+  for (int env = 0; env < B; ++env) {
+    memcpy(s.q, qpos + (size_t)env * NQ, sizeof(s.q));
+    dls_ik_group(m, s, 0, 0u, arm, hand, mk(ox, oy, oz),
+                 target ? target + (size_t)env * 3 : nullptr, iters, damp2,
+                 q_out ? q_out + (size_t)env * n_arm : nullptr,
+                 p_out ? p_out + (size_t)env * 3 : nullptr);
+  }
+}
+#else
+__global__ void __launch_bounds__(BLOCK_THREADS, LANES / 8)
+    dls_ik_kernel(const float* __restrict__ qpos,
+                  const float* __restrict__ target, float* __restrict__ q_out,
+                  float* __restrict__ p_out, unsigned arm, int hand, float ox,
+                  float oy, float oz, int iters, float damp2, int B) {
+  extern __shared__ float smem[];
+  {
+    const int* src = reinterpret_cast<const int*>(&c_m);
+    int* dst = reinterpret_cast<int*>(smem);
+    for (int i = threadIdx.x; i < (int)(sizeof(SubstepModel) / 4);
+         i += BLOCK_THREADS)
+      dst[i] = src[i];
+  }
+  __syncthreads();
+  const SubstepModel& m = *reinterpret_cast<const SubstepModel*>(smem);
+  const int g = threadIdx.x / LANES, lane = threadIdx.x % LANES;
+  const int env = blockIdx.x * GROUPS + g;
+  if (env >= B) return;
+  Slice& s = *reinterpret_cast<Slice*>(reinterpret_cast<char*>(smem) +
+                                       MODEL_BYTES + g * SLICE_BYTES);
+  const unsigned mask =
+      LANES == 32 ? 0xffffffffu
+                  : ((1u << (LANES & 31)) - 1u) << ((threadIdx.x & 31) &
+                                                     ~(LANES - 1));
+  FOR_LANE(k, NQ) s.q[k] = qpos[(size_t)env * NQ + k];
+  __syncwarp(mask);
+  dls_ik_group(m, s, lane, mask, arm, hand, mk(ox, oy, oz),
+               target ? target + (size_t)env * 3 : nullptr, iters, damp2,
+               q_out ? q_out + (size_t)env * __popc(arm) : nullptr,
+               p_out ? p_out + (size_t)env * 3 : nullptr);
+}
+
+extern "C" int dls_ik_launch(const float* qpos, const float* target,
+                             float* q_out, float* p_out, unsigned arm,
+                             int hand, float ox, float oy, float oz,
+                             int iters, float damp2, int B, void* stream) {
+  if (B <= 0) return 0;
+  const int blocks = (B + GROUPS - 1) / GROUPS;
+  dls_ik_kernel<<<blocks, BLOCK_THREADS, SHARED_BYTES,
+                  (cudaStream_t)stream>>>(qpos, target, q_out, p_out, arm,
+                                          hand, ox, oy, oz, iters, damp2, B);
+  return (int)cudaGetLastError();
+}
+#endif
+#endif  // HAS_SERVO: the DLS IK
+
 #ifndef SUBSTEP_HOST
 // ---------------------------------------------------------------------------
 // plain C interface, bound with ctypes in physics/substep_cuda.py
@@ -1284,6 +1532,9 @@ extern "C" int substep_set_model(const void* host_model) {
 #if HAS_SERVO  // ---- the end-effector state
   if (err == cudaSuccess) err = set_shared((const void*)ee_state_kernel);
 #endif  // HAS_SERVO: the end-effector state
+#if HAS_SERVO  // ---- the DLS IK
+  if (err == cudaSuccess) err = set_shared((const void*)dls_ik_kernel);
+#endif  // HAS_SERVO: the DLS IK
   return (int)err;
 }
 

@@ -27,10 +27,14 @@ and on the CPU its plain PyTorch version (`physics/substep.py`); with
 False the env steps `physics/engine_cl.py` on whichever device it lives
 (on a card through a CUDA graph a batch size). The env is built on the
 card unless the caller passes `device="cpu"`. The observation's ee state
-follows the physics: through the substep kernel, one launch of its
-ee-state entry (`SubstepKernel.ee_state`); otherwise, and for the `ee`
-control's FK and IK, the kinematics of `physics/panda.py:Arm`, which read
-index and constant tensors the env builds once.
+and the `ee` control follow the physics: through the substep kernel, the
+kernel's Panda entries (the env hands it to `Arm.kernel`): one launch of
+the ee-state entry for the observation (`SubstepKernel.ee_state`), and for
+the `ee` control, in the span `ik`, two launches of the IK entry (the
+current ee point, `Arm.ee_point`; then `Arm.dls_ik`) around the target's
+few ops, bit for bit the plain route on the card; otherwise the plain
+kinematics of `physics/panda.py:Arm`, which read index and constant tensors
+the env builds once.
 """
 
 from __future__ import annotations
@@ -92,6 +96,7 @@ class PandaTaskEnv:
         self.generator.manual_seed(seed)
         self.kernel, self.engine = physics_of(self.model, self.consts,
                                               self.device, use_pallas)
+        self.arm.kernel = self.kernel
 
     # -- physics --------------------------------------------------------------
 
@@ -102,14 +107,10 @@ class PandaTaskEnv:
 
     def _ee_state(self, qpos, qvel):
         """End-effector position and velocity [B, 3] each (the span
-        `ee_state`): one launch of the substep kernel's ee-state entry
-        where the env steps through that kernel, else `Arm.ee_state`."""
+        `ee_state`): `Arm.ee_state`, one launch of the substep kernel's
+        ee-state entry where the env steps through that kernel."""
         with trace.span("ee_state"):
-            if self.kernel is None:
-                return self.arm.ee_state(qpos, qvel)
-            out = self.kernel.ee_state(qpos, qvel, self.arm.hand,
-                                       self.arm.ee_offset_host)
-            return out[:, :3], out[:, 3:]
+            return self.arm.ee_state(qpos, qvel)
 
     def _obs_from(self, qpos, p_ee, v_ee):
         parts = [p_ee, v_ee]
@@ -182,8 +183,7 @@ class PandaTaskEnv:
         action = torch.clamp(action, -1.0, 1.0)
         if self.control_type == "ee":
             with trace.span("ik"):
-                body_pos, body_quat = self.arm.kin.fk(qpos)
-                p_ee = self.arm.ee_position(body_pos, body_quat)
+                p_ee = self.arm.ee_point(qpos)
                 target_p = p_ee + action[:, :3] * 0.05
                 target_p = torch.cat(
                     [target_p[:, :2], torch.clamp_min(target_p[:, 2:], 0.0)],

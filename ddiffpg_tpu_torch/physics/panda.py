@@ -7,7 +7,14 @@ Scene layout as there: robot base at (-0.6, 0, 0), the table top is the
 z = 0 plane, task furniture is static AABBs plus 1-dof dynamic boxes
 (drawer slides, cabinet door). The builder gives `Model`s field-identical
 to the JAX package's. `Arm` holds one scene's kinematics on a device for
-the env's observation and its `ee` control (`ee_jacobian`, `dls_ik`).
+the env's observation and its `ee` control (`ee_point`, `ee_jacobian`,
+`dls_ik`). Handed the env's CUDA substep kernel (`Arm.kernel`, set by
+`envs/panda.py:PandaTaskEnv` wherever the env steps through it), `Arm`
+alone picks the route: `ee_state` takes one launch of the kernel's
+ee-state entry, and `ee_point` and `dls_ik` one launch each of its IK entry
+(`dls_ik_kernel` in `csrc/substep.cu`), which computes what the plain
+PyTorch below computes on the card bit for bit; without it (the CPU,
+`use_pallas=False`) all three run that plain PyTorch.
 """
 
 from __future__ import annotations
@@ -228,17 +235,21 @@ def build_panda_scene(task: str, dt=0.002, n_substeps=20):
 class Arm:
     """One Panda scene's kinematics on one device, built once: the
     model's `engine.Kinematics` and the arm's index and constant tensors,
-    so that a control step uploads nothing."""
+    so that a control step uploads nothing. `kernel` is None, or the
+    scene's `physics/substep_cuda.py:SubstepKernel`, whose entries then
+    compute `ee_state`, `ee_point` and `dls_ik`."""
 
     def __init__(self, model, meta, device: str | torch.device = "cuda"):
         self.kin = engine.Kinematics(model, device)
         dev = self.kin.device
+        self.kernel = None
         self.hand = int(meta["hand_idx"])
         self.ee_offset_host = tuple(
             np.asarray(meta["ee_offset"], np.float32).tolist())
         self.ee_offset = torch.as_tensor(
             np.asarray(meta["ee_offset"], np.float32), device=dev)
         body = np.asarray(meta["arm_body_idx"], np.int64)
+        self.arm_body_host = tuple(body.tolist())
         self.arm_body = torch.as_tensor(body, device=dev)
         self.arm_axis = torch.as_tensor(
             np.asarray(model.jnt_axis[body], np.float32), device=dev)
@@ -250,9 +261,24 @@ class Arm:
         h = self.hand
         return body_pos[:, h] + Q.rotate(body_quat[:, h], self.ee_offset)
 
+    def ee_point(self, qpos: torch.Tensor):
+        """World position [B, 3] of the end effector at qpos: FK and
+        `ee_position`; with a kernel, the same in one launch of its IK
+        entry (`SubstepKernel.ee_point`)."""
+        if self.kernel is not None:
+            return self.kernel.ee_point(qpos, self.hand, self.ee_offset_host)
+        body_pos, body_quat = self.kin.fk(qpos)
+        return self.ee_position(body_pos, body_quat)
+
     def ee_state(self, qpos: torch.Tensor, qvel: torch.Tensor):
         """The end effector's world position and linear velocity [B, 3]
-        each, through `engine.Kinematics` (world-origin subspaces)."""
+        each, through `engine.Kinematics` (world-origin subspaces); with a
+        kernel, in one launch of its ee-state entry
+        (`SubstepKernel.ee_state`)."""
+        if self.kernel is not None:
+            out = self.kernel.ee_state(qpos, qvel, self.hand,
+                                       self.ee_offset_host)
+            return out[:, :3], out[:, 3:]
         kin = self.kin
         body_pos, body_quat = kin.fk(qpos)
         p_ee = self.ee_position(body_pos, body_quat)
@@ -281,7 +307,12 @@ class Arm:
         each clipped to +-0.2 and added to the arm joints, FK on the full
         qpos at every step, the 3x3 system solved in closed form (three
         cross products over the determinant) as
-        `ddiffpg_tpu/physics/panda.py:dls_ik` does."""
+        `ddiffpg_tpu/physics/panda.py:dls_ik` does. With a kernel, the
+        same in one launch of its IK entry (`SubstepKernel.dls_ik`)."""
+        if self.kernel is not None:
+            return self.kernel.dls_ik(qpos, target, self.arm_body_host,
+                                      self.hand, self.ee_offset_host, iters,
+                                      damping)
         q = qpos.clone()
         adr = self.arm_qposadr
         eye = torch.eye(3, device=qpos.device)

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ddiffpg_tpu_torch.physics.substep import SubstepConstants
+from ddiffpg_tpu_torch.physics.types import HINGE
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "substep.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
@@ -219,12 +220,14 @@ def build(c: SubstepConstants, lanes: int | None = None) -> Path:
                            SOURCE, "substep", bytes(model_block(c)))
 
 
-def ptxas_report(log: str, entry: str = r"(substep_kernel|ee_state_kernel)",
+def ptxas_report(log: str,
+                 entry: str = (r"(substep_kernel|ee_state_kernel"
+                               r"|dls_ik_kernel)"),
                  key=lambda m: m[1]) -> dict:
     """ptxas' `-v` lines of a build, by entry: `key` of the match of the
     regex `entry` in the entry's name (default: `substep_kernel`,
-    `ee_state_kernel`) -> registers, stack frame, spill stores and loads
-    (bytes)."""
+    `ee_state_kernel`, `dls_ik_kernel`) -> registers, stack frame, spill
+    stores and loads (bytes)."""
     out, compiling, props = {}, None, None
 
     def find(line):
@@ -275,6 +278,10 @@ def _load(c: SubstepConstants, device: torch.device, lanes: int | None):
             ctypes.c_int] + [ctypes.c_float] * 3 + [ctypes.c_int,
                                                    ctypes.c_void_p]
         lib.ee_state_launch.restype = ctypes.c_int
+        lib.dls_ik_launch.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_uint, ctypes.c_int] + [ctypes.c_float] * 3 + [
+            ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        lib.dls_ik_launch.restype = ctypes.c_int
     block = model_block(c)
     if lib.substep_model_bytes() != ctypes.sizeof(block):
         raise RuntimeError("struct SubstepModel layout differs from its "
@@ -305,7 +312,8 @@ class SubstepKernel:
     `lanes` overrides `lanes_for` (threads per env: 8, 16 or 32).
 
     `launches` counts the substep launches made through this object,
-    `ee_launches` those of `ee_state` (Panda builds only).
+    `ee_launches` those of `ee_state` and `ik_launches` those of the IK
+    entry (`dls_ik`, `ee_point`; Panda builds only).
     """
 
     def __init__(self, model, device: str | torch.device = "cuda",
@@ -326,12 +334,13 @@ class SubstepKernel:
                                f"{self._lib.device}, not {self.device}")
         self.launches = 0
         self.ee_launches = 0
+        self.ik_launches = 0
 
     def _check(self, **inputs):
         """Each input float32 [B, width], contiguous, on the kernel's
         device; returns B."""
         c = self.consts
-        widths = {"qpos": c.nq, "qvel": c.nv, "ctrl": c.nu}
+        widths = {"qpos": c.nq, "qvel": c.nv, "ctrl": c.nu, "target": 3}
         B = inputs["qpos"].shape[0]
         for name, t in inputs.items():
             w = widths[name]
@@ -385,4 +394,57 @@ class SubstepKernel:
             oz, B, stream)
         self._raise_on(err, "ee_state")
         self.ee_launches += 1
+        return out
+
+    def _ik_launch(self, qpos, target, q_out, p_out, arm_body, hand: int,
+                   offset, iters: int, damping: float):
+        """One launch of `dls_ik_kernel`; `target`, `q_out` and `p_out`
+        may each be None (no target read, no joints or no point written)."""
+        c = self.consts
+        if not c.has_servo:
+            raise ValueError("this model's build has no IK entry (no "
+                             "servos)")
+        if (arm_body != sorted(set(arm_body))
+                or any(not 0 <= i < min(c.nb, 32) or c.jnt_type[i] != HINGE
+                       for i in arm_body)):
+            raise ValueError(f"arm bodies {arm_body} must be increasing "
+                             f"hinges of the {c.nb} bodies")
+        if not 0 <= hand < c.nb:
+            raise ValueError(f"body {hand} of {c.nb}")
+        ox, oy, oz = (float(x) for x in offset)
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        err = self._lib.dls_ik_launch(
+            qpos.data_ptr(), target.data_ptr() if target is not None else None,
+            q_out.data_ptr() if q_out is not None else None,
+            p_out.data_ptr() if p_out is not None else None,
+            sum(1 << i for i in arm_body), hand, ox, oy, oz, iters,
+            float(damping) ** 2, qpos.shape[0], stream)
+        self._raise_on(err, "dls_ik")
+        self.ik_launches += 1
+
+    def dls_ik(self, qpos: torch.Tensor, target: torch.Tensor, arm_body,
+               hand: int, offset, iters: int, damping: float):
+        """`physics/panda.py:Arm.dls_ik` bit for bit as the plain PyTorch
+        computes it on the card, in one launch of `dls_ik_kernel` on the
+        current stream (a Panda build's third entry): from qpos [B, nq],
+        `iters` damped-least-squares steps that move the hinges of the
+        bodies `arm_body` (increasing) to put the point `offset` (3 floats,
+        in the frame of body `hand`) at `target` [B, 3]; returns those
+        joints' qpos [B, len(arm_body)]."""
+        arm_body = [int(i) for i in arm_body]
+        B = self._check(qpos=qpos, target=target)
+        out = torch.empty((B, len(arm_body)), dtype=torch.float32,
+                          device=self.device)
+        self._ik_launch(qpos, target, out, None, arm_body, hand, offset,
+                        int(iters), damping)
+        return out
+
+    def ee_point(self, qpos: torch.Tensor, hand: int, offset):
+        """`Arm.ee_point` (Kinematics.fk and `Arm.ee_position`) bit for bit
+        as the plain PyTorch computes it on the card: the world position
+        [B, 3] of the point `offset` in the frame of body `hand`, in one
+        launch of the IK entry with no iterations."""
+        B = self._check(qpos=qpos)
+        out = torch.empty((B, 3), dtype=torch.float32, device=self.device)
+        self._ik_launch(qpos, None, None, out, [], hand, offset, 0, 0.0)
         return out

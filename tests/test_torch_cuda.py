@@ -223,7 +223,8 @@ def test_ee_state_kernel_matches_kinematics(card, task):
 @pytest.mark.parametrize("task", ["DrawerMulti", "Reach"])
 def test_env_step_ee_state_kernel_matches_plain(card, task, monkeypatch):
     """A whole `step_batched` of 4096 envs on the kernel route against the
-    same step with `_ee_state` on the plain `Kinematics` path, from one
+    same step with the arm's kernel removed (`Arm.ee_state` on the plain
+    `Kinematics` path; the physics still the kernel's), from one
     state and with the same reset noise: obs' ee position within 1e-5,
     its velocity within 1e-4, the rest and the next state equal; reward,
     done and success bitwise. The step makes one ee-state launch."""
@@ -243,7 +244,7 @@ def test_env_step_ee_state_kernel_matches_plain(card, task, monkeypatch):
     env.kernel.ee_launches = 0
     got = env.step_batched(state, action, noise)
     assert env.kernel.ee_launches == 1
-    monkeypatch.setattr(env, "_ee_state", env.arm.ee_state)
+    monkeypatch.setattr(env.arm, "kernel", None)
     want = env.step_batched(state, action, noise)
     torch.cuda.synchronize()
     assert env.kernel.ee_launches == 1
@@ -258,34 +259,150 @@ def test_env_step_ee_state_kernel_matches_plain(card, task, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("task", ["Reach", "PegInsertion", "DrawerMulti",
+                                  "Cabinet"])
+def test_dls_ik_kernel_matches_plain(card, task):
+    """`Arm.ee_point` and `Arm.dls_ik` handed the kernel (each one launch
+    of `dls_ik_kernel`) at 4096 envs against the plain `Arm` on the card,
+    with 3 and 2 iterations, from states near the neutral pose towards
+    targets up to 5 cm away (the `ee` control's reach): bit for bit, and
+    so at 1, 20 and 4095 envs (the first rows). One launch a call,
+    counted apart from the other entries; a non-contiguous target raises
+    before any launch."""
+    from ddiffpg_tpu_torch.physics.panda import Arm
+    from ddiffpg_tpu_torch.physics.substep_cuda import SubstepKernel
+
+    m, meta, c = _model(task)
+    kern = SubstepKernel(c, device=card)
+    arm = Arm(m, meta, card)
+    qpos = chip_smoke.panda_states(m, meta, 4096, 5, card)[0]
+    g = torch.Generator(device=card).manual_seed(6)
+    point = arm.ee_point(qpos)
+    target = point + (torch.rand((4096, 3), generator=g, device=card)
+                      * 0.1 - 0.05)
+    want = {it: arm.dls_ik(qpos, target, it) for it in (3, 2)}
+    arm.kernel = kern
+    got_point = arm.ee_point(qpos)
+    got = {it: arm.dls_ik(qpos, target, it) for it in (3, 2)}
+    torch.cuda.synchronize()
+    assert torch.equal(got_point, point)
+    for it in (3, 2):
+        assert torch.equal(got[it], want[it]), it
+    for B in (1, 20, 4095):
+        small = arm.dls_ik(qpos[:B].contiguous(), target[:B].contiguous())
+        assert torch.equal(small, want[3][:B]), B
+    moved = (got[3] - qpos[:, arm.arm_qposadr]).abs().max()
+    assert float(moved) > 1e-2
+    assert (kern.ik_launches, kern.ee_launches, kern.launches) == (6, 0, 0)
+    wide = torch.cat([target, target[:, :1]], 1)[:, :3]
+    with pytest.raises(ValueError, match="contiguous"):
+        arm.dls_ik(qpos, wide)
+    assert kern.ik_launches == 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["PegInsertion", "DrawerMulti"])
+def test_env_step_ee_control_kernel_route(card, task, monkeypatch):
+    """One `step_batched` of 4096 `ee`-control envs on the kernel route
+    against the same step with the arm's kernel removed (the plain FK, ee
+    point, `Arm.dls_ik` and `Arm.ee_state`), from one state of moving arms
+    with the same actions and reset noise: the servo targets, the next
+    state, reward, done and the rest of the obs bit for bit (the servos
+    would turn a one-ulp change of a target into an ee velocity a tenth
+    apart); the obs' ee position within 1e-5 and velocity within 1e-4, as
+    the ee-state entry stands to the plain `Kinematics`. The kernel
+    route's step makes two IK launches and one ee-state launch (the
+    observation); the plain route's none."""
+    from ddiffpg_tpu_torch.envs.panda import PandaTaskEnv
+
+    env = PandaTaskEnv(task, control_type="ee", random_init_pos=True,
+                       device=card, seed=3)
+    B = 4096
+    state, _ = env.reset_batched(B)
+    g = torch.Generator(device=card).manual_seed(4)
+    for _ in range(3):   # moving arms
+        action = torch.rand((B, env.action_dim), generator=g,
+                            device=card) * 2 - 1
+        state, *_ = env.step_batched(state, action)
+    noise = torch.rand((B, 7), generator=g, device=card) * 0.2 - 0.1
+    kern = env.kernel
+    kern.ik_launches = kern.ee_launches = 0
+    ctrl = env._ctrl_from_action(state.qpos, action)
+    got = env.step_batched(state, action, noise)
+    assert (kern.ik_launches, kern.ee_launches) == (4, 1)
+    monkeypatch.setattr(env.arm, "kernel", None)
+    ctrl_plain = env._ctrl_from_action(state.qpos, action)
+    want = env.step_batched(state, action, noise)
+    torch.cuda.synchronize()
+    assert (kern.ik_launches, kern.ee_launches) == (4, 1)
+    assert torch.equal(ctrl, ctrl_plain)
+    (s1, o1, r1, d1, i1), (s2, o2, r2, d2, i2) = got, want
+    torch.testing.assert_close(o1[:, :3], o2[:, :3], atol=1e-5, rtol=0)
+    torch.testing.assert_close(o1[:, 3:6], o2[:, 3:6], atol=1e-4, rtol=0)
+    assert torch.equal(o1[:, 6:], o2[:, 6:])
+    for a, b in ((r1, r2), (d1, d2), (i1["success"], i2["success"]),
+                 (i1["time_outs"], i2["time_outs"]), *zip(s1, s2)):
+        assert torch.equal(a, b)
+    assert bool(torch.isfinite(o1).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", ["ant", "DrawerMulti"])
 def test_substep_kernel_ptxas_without_ee_state(card, name, tmp_path):
-    """The ee-state entry leaves the substep kernel's code as it was:
-    ptxas reports the same registers, stack frame and spills for
-    `substep_kernel` with the entry and with its two blocks (the kernel,
-    its shared-memory set-up) cut from the source; the ant's build has no
-    `ee_state_kernel`."""
+    """The Panda entries leave the other kernels' code as it was: ptxas
+    reports the same registers, stack frame and spills for
+    `substep_kernel` with the entries and with the blocks of either or
+    both (each entry's kernel and its shared-memory set-up) cut from the
+    source, and the same for `ee_state_kernel` with and without the IK's
+    blocks; `dls_ik_kernel` spills nothing. The ant's build has neither
+    entry."""
     import re
+    from concurrent.futures import ThreadPoolExecutor
 
     from ddiffpg_tpu_torch.physics import substep_cuda as sc
 
     _, _, c = _model(name)
     src = sc.SOURCE.read_text()
-    block = (r"#if HAS_SERVO  // ---- the end-effector state\n.*?"
-             r"#endif  // HAS_SERVO: the end-effector state\n")
-    cut, n = re.subn(block, "", src, flags=re.S)
-    assert n == 2
-    (tmp_path / "substep_cut.cu").write_text(cut)
-    libs = (sc.build(c), sc.compile_library(
-        sc._nvcc(), sc.NVCC_FLAGS + tuple(sc.defines(c)),
-        tmp_path / "substep_cut.cu", "substep_cut", bytes(sc.model_block(c))))
-    full, without = (sc.ptxas_report(lib.with_suffix(".log").read_text())
-                     for lib in libs)
+    block = {what: (rf"#if HAS_SERVO  // ---- the {what}\n.*?"
+                    rf"#endif  // HAS_SERVO: the {what}\n")
+             for what in ("end-effector state", "DLS IK")}
+    cuts = {"no_ee": ["end-effector state"], "no_ik": ["DLS IK"],
+            "neither": ["end-effector state", "DLS IK"]}
+    for tag, whats in cuts.items():
+        cut = src
+        for what in whats:
+            cut, n = re.subn(block[what], "", cut, flags=re.S)
+            assert n == 2
+        (tmp_path / f"substep_{tag}.cu").write_text(cut)
+
+    def build(tag):
+        if tag == "full":
+            return sc.build(c)
+        return sc.compile_library(
+            sc._nvcc(), sc.NVCC_FLAGS + tuple(sc.defines(c)),
+            tmp_path / f"substep_{tag}.cu", f"substep_{tag}",
+            bytes(sc.model_block(c)))
+
+    tags = ["full", *cuts]
+    with ThreadPoolExecutor(len(tags)) as pool:
+        libs = dict(zip(tags, pool.map(build, tags)))
+    rep = {tag: sc.ptxas_report(lib.with_suffix(".log").read_text())
+           for tag, lib in libs.items()}
+    full = rep["full"]
     assert set(full["substep_kernel"]) == {"registers", "stack",
                                            "spill_stores", "spill_loads"}
-    assert full["substep_kernel"] == without["substep_kernel"]
-    assert ("ee_state_kernel" in full) == (name != "ant")
-    assert "ee_state_kernel" not in without
+    for tag in cuts:
+        assert full["substep_kernel"] == rep[tag]["substep_kernel"], tag
+    panda = name != "ant"
+    assert ("ee_state_kernel" in full) == panda
+    assert ("dls_ik_kernel" in full) == panda
+    assert "ee_state_kernel" not in rep["no_ee"]
+    assert "dls_ik_kernel" not in rep["no_ik"]
+    assert not {"ee_state_kernel", "dls_ik_kernel"} & set(rep["neither"])
+    if panda:
+        assert full["ee_state_kernel"] == rep["no_ik"]["ee_state_kernel"]
+        ik = full["dls_ik_kernel"]
+        assert (ik["spill_stores"], ik["spill_loads"]) == (0, 0), ik
 
 
 def _card_agent(card, num_envs=64, **over):

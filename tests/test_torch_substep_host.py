@@ -148,6 +148,83 @@ def test_host_ee_state_matches_kinematics(host_builds, name):
     assert not hasattr(host_builds["ant"][3], "ee_state_host")
 
 
+def _ik_case(host_builds, name, seed):
+    """(arm, qpos [B, nq], targets [B, 3]) of one Panda scene: 8 states
+    near its neutral pose, each asked to move its end effector by up to
+    5 cm, as the `ee` control does."""
+    m, meta, _, _ = host_builds[name]
+    rng = np.random.RandomState(seed)
+    qpos = chip_smoke.panda_states(m, meta, B, 2, device="cpu")[0].numpy()
+    arm = Arm(m, meta, "cpu")
+    point = arm.ee_point(torch.tensor(qpos)).numpy()
+    target = (point + rng.uniform(-0.05, 0.05, (B, 3))).astype(np.float32)
+    return arm, qpos, target
+
+
+def _run_ik(host_builds, name, arm, qpos, target, iters):
+    """`dls_ik_host`: (arm targets [B, 7], ee point [B, 3] at qpos)."""
+    _, _, c, lib = host_builds[name]
+    block = substep_cuda.model_block(c)
+    lib.dls_ik_host.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_uint, ctypes.c_int] + [ctypes.c_float] * 3 + [
+        ctypes.c_int, ctypes.c_float, ctypes.c_int]
+    q = np.full((B, 7), np.nan, np.float32)
+    p = np.empty((B, 3), np.float32)
+    lib.dls_ik_host(ctypes.addressof(block), qpos.ctypes.data,
+                    target.ctypes.data, q.ctypes.data, p.ctypes.data,
+                    sum(1 << i for i in arm.arm_body_host), arm.hand,
+                    *arm.ee_offset_host, iters, 0.05 ** 2, B)
+    return q, p
+
+
+@pytest.mark.parametrize("iters", [3, 2])
+@pytest.mark.parametrize("name", MODELS[1:])
+def test_host_dls_ik_matches_plain(host_builds, name, iters):
+    """The Panda builds' third entry, `dls_ik_host` (on the card
+    `dls_ik_kernel`: `SubstepKernel.dls_ik` and `ee_point`), against the
+    plain `Arm.dls_ik` and `Arm.ee_point` on 8 states near the task's
+    neutral pose, each asked to move its end effector by up to 5 cm as the
+    `ee` control does: the arm targets and the ee point within 1e-5. On
+    the card the entry is the plain route's bits; here the two differ by
+    rounding (the host libm's `sinf` against torch's, the CPU's sums and
+    products against the card's), which the damped solve amplifies by up
+    to 1 / (2 damping) = 10. With no iterations the entry gives the same
+    point and leaves the joints. The ant's build has no such entry."""
+    arm, qpos, target = _ik_case(host_builds, name, len(name) + iters)
+    point = arm.ee_point(torch.tensor(qpos)).numpy()
+    want = arm.dls_ik(torch.tensor(qpos), torch.tensor(target), iters)
+    got, p_got = _run_ik(host_builds, name, arm, qpos, target, iters)
+    np.testing.assert_allclose(got, want.numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(p_got, point, atol=1e-5, rtol=0)
+    arm_q = qpos[:, arm.arm_qposadr.numpy()]
+    assert np.abs(got - arm_q).max() > 1e-2
+    still, p0 = _run_ik(host_builds, name, arm, qpos, target, 0)
+    np.testing.assert_array_equal(p0, p_got)
+    np.testing.assert_array_equal(still, arm_q)
+    assert not hasattr(host_builds["ant"][3], "dls_ik_host")
+
+
+def test_host_dls_ik_matches_jax(host_builds):
+    """`dls_ik_host` against the JAX package's `dls_ik` (vmapped over the
+    batch) on the same 8 DrawerMulti states and targets: the arm targets
+    within 1e-5, as `tests/test_torch_envs_all.py` holds the plain
+    `Arm.dls_ik` to JAX's. One iteration (FK, Jacobian, the closed-form
+    solve, the clipped step; later ones repeat it from the new joints,
+    which `test_host_dls_ik_matches_plain` covers): each iteration costs
+    JAX about 2.5 s on the CPU to trace and compile its FK chain."""
+    import jax
+
+    from ddiffpg_tpu.physics import panda as JP
+
+    arm, qpos, target = _ik_case(host_builds, "DrawerMulti", 11)
+    got, _ = _run_ik(host_builds, "DrawerMulti", arm, qpos, target, 1)
+    jm, jmeta = JP.build_panda_scene("DrawerMulti")
+    want = jax.jit(jax.vmap(lambda q, t: JP.dls_ik(jm, jmeta, q, t, 1)))(
+        qpos, target)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-5, rtol=0)
+    assert np.abs(got - qpos[:, arm.arm_qposadr.numpy()]).max() > 1e-2
+
+
 @pytest.mark.parametrize("name", MODELS)
 def test_launch_geometry(host_builds, name):
     """Threads per env, envs per block and shared bytes per block: a block
