@@ -16,7 +16,8 @@ from ddiffpg_tpu_torch.envs import make  # noqa: E402
 from ddiffpg_tpu_torch.envs.antmaze import AntMazeEnv  # noqa: E402
 from ddiffpg_tpu_torch.envs.base import EnvState  # noqa: E402
 from ddiffpg_tpu_torch.physics import maze  # noqa: E402
-from tests.jax_caches import fresh_structure_cache  # noqa: E402,F401
+from tests.port_fixtures import (  # noqa: E402,F401
+    fresh_structure_cache, one_torch_thread)
 
 B = 16
 

@@ -48,23 +48,12 @@ from ddiffpg_tpu_torch.ops import running_stats as rs  # noqa: E402
 from ddiffpg_tpu_torch.replay import flat  # noqa: E402
 from ddiffpg_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 from ddiffpg_tpu_torch.utils import convert  # noqa: E402
-from tests.jax_caches import fresh_structure_cache  # noqa: E402,F401
+from tests.port_fixtures import (  # noqa: E402,F401
+    fresh_structure_cache, one_torch_thread)
 
 E, B, ROWS, CAP = 4, 48, 300, 320
 T = lambda x: torch.tensor(np.asarray(x))  # noqa: E731
 N = lambda x: x.detach().cpu().numpy()  # noqa: E731
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """These tests' tensors are small (batch 48), and beside the suite's
-    other workers torch's default of a thread a core oversubscribes the
-    machine (3x slower under load): one intra-op thread for the module,
-    the previous count restored after it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def close(got, want, tol, msg=""):

@@ -24,13 +24,12 @@ from ddiffpg_tpu.models import baseline_diffusion as jbd  # noqa: E402
 from ddiffpg_tpu_torch.models import baseline_diffusion as bd  # noqa: E402
 from ddiffpg_tpu_torch.replay import flat  # noqa: E402
 from ddiffpg_tpu_torch.utils import convert  # noqa: E402
-from tests.jax_caches import fresh_structure_cache  # noqa: E402,F401
+from tests.port_fixtures import (  # noqa: E402,F401
+    fresh_structure_cache, one_torch_thread)
 from tests.test_torch_baselines import (B, N, T, assert_reloaded,  # noqa
                                         check_core, check_logs, check_rms,
-                                        close,
-                                        equal, fill_core, jax_agent,
-                                        jax_td3_draws, one_torch_thread,
-                                        port_agent, run_main)
+                                        close, equal, fill_core, jax_agent,
+                                        jax_td3_draws, port_agent, run_main)
 
 K = 3
 

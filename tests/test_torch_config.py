@@ -6,6 +6,8 @@ import pytest
 
 from ddiffpg_tpu import config as jax_config
 from ddiffpg_tpu_torch import config
+from tests.port_fixtures import (  # noqa: F401
+    fresh_structure_cache, one_torch_thread)
 
 CLASSES = ("NoiseConfig", "ExpConfig", "AlgoConfig", "DiffusionConfig",
            "IntrinsicConfig", "EnvConfig", "Config")

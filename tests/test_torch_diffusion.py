@@ -18,6 +18,8 @@ from ddiffpg_tpu_torch.models.diffusion import (DiffusionPolicy,  # noqa: E402
                                                 lecun_normal_)
 from ddiffpg_tpu_torch.ops import ddpm, embedding, noise  # noqa: E402
 from ddiffpg_tpu_torch.utils.convert import load_diffusion  # noqa: E402
+from tests.port_fixtures import (  # noqa: E402,F401
+    fresh_structure_cache, one_torch_thread)
 
 A, OBS, EMB, K = 8, 29, 5, 5
 

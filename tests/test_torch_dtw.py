@@ -16,6 +16,8 @@ torch = pytest.importorskip("torch")
 
 from ddiffpg_tpu.ops import dtw as jdtw  # noqa: E402
 from ddiffpg_tpu_torch.ops import dtw  # noqa: E402
+from tests.port_fixtures import (  # noqa: E402,F401
+    fresh_structure_cache, one_torch_thread)
 
 
 def _tracks(seed, n, L, D):

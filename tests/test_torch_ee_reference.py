@@ -30,17 +30,11 @@ from ddiffpg_tpu_torch.agents.ddiffpg import collect  # noqa: E402
 from ddiffpg_tpu_torch.envs import base as env_base  # noqa: E402
 from ddiffpg_tpu_torch.envs import make  # noqa: E402
 from ddiffpg_tpu_torch.models.diffusion import DiffusionPolicy  # noqa: E402
+from tests.port_fixtures import (  # noqa: E402,F401
+    fresh_structure_cache, one_torch_thread)
 
 NAME, B, T, K, EMB = "PandaDrawerMulti-v3", 4, 2, 5, 5
 P_EXPLOIT, STD_MIN, STD_MAX = 0.5, 0.05, 0.6
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _two_substeps(substep):

@@ -32,17 +32,10 @@ from ddiffpg_tpu_torch.physics.ant import build_ant
 from ddiffpg_tpu_torch.physics.builder import (BodySpec, GeomSpec, JointSpec,
                                                build)
 from ddiffpg_tpu_torch.physics.panda import build_panda_scene
-from tests.jax_caches import fresh_structure_cache  # noqa: F401
+from tests.port_fixtures import (  # noqa: F401
+    fresh_structure_cache, one_torch_thread)
 
 N = lambda x: x.detach().cpu().numpy()  # noqa: E731
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ------------------------------------------------------------------ models
@@ -51,7 +44,7 @@ def one_torch_thread():
 def _models(name):
     """(JAX model, port model, extra) of a test scene, 5 substeps; built
     once and kept for the module, so that no JAX model gets a freed one's
-    `id` (the JAX engine caches structures by it: tests/jax_caches.py)."""
+    `id` (the JAX engine caches structures by it: tests/port_fixtures.py)."""
     if name.startswith("ant"):
         walls = (dict(**JM.compile_sdf(JM.MAZE_v1)), TM.compile_sdf(
             TM.MAZE_v1)) if name == "ant_sdf" else (

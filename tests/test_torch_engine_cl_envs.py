@@ -20,17 +20,10 @@ from ddiffpg_tpu.envs.base import EnvState as JaxState
 from ddiffpg_tpu_torch.envs import make
 from ddiffpg_tpu_torch.envs.base import EnvState
 from ddiffpg_tpu_torch.physics.engine_cl import Engine
-from tests.jax_caches import fresh_structure_cache  # noqa: F401
+from tests.port_fixtures import (  # noqa: F401
+    fresh_structure_cache, one_torch_thread)
 
 B = 8
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_antmaze_engine_cl_step_matches_jax():

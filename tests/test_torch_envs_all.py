@@ -35,7 +35,8 @@ from ddiffpg_tpu_torch.physics import quat as Q  # noqa: E402
 from ddiffpg_tpu_torch.physics.types import (FIXED, FREE,  # noqa: E402
                                              HINGE, SLIDE)
 from ddiffpg_tpu_torch.utils import density  # noqa: E402
-from tests.jax_caches import fresh_structure_cache  # noqa: E402,F401
+from tests.port_fixtures import (  # noqa: E402,F401
+    fresh_structure_cache, one_torch_thread)
 
 MAZES = ["antmaze-v1", "antmaze-v2", "antmaze-v2-hard", "antmaze-v3",
          "antmaze-v4", "antmaze-v5"]

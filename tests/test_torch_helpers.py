@@ -52,19 +52,10 @@ from ddiffpg_tpu_torch.ops import dtw, embedding, noise, posenc  # noqa: E402
 from ddiffpg_tpu_torch.ops import running_stats as rs  # noqa: E402
 from ddiffpg_tpu_torch.physics import maze, quat  # noqa: E402
 from ddiffpg_tpu_torch.physics.engine_cl import Engine  # noqa: E402
+from tests.port_fixtures import (  # noqa: E402,F401
+    fresh_structure_cache, one_torch_thread)
 
 N = lambda x: x.detach().cpu().numpy()  # noqa: E731
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Small tensors: beside the suite's other workers torch's default of a
-    thread a core oversubscribes the machine, so one intra-op thread for
-    the module, the previous count restored after it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ------------------------------------------------------------ maze helpers

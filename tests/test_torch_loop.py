@@ -40,7 +40,8 @@ from ddiffpg_tpu_torch.agents.evaluation import eval_rollout  # noqa: E402
 from ddiffpg_tpu_torch.envs import make  # noqa: E402
 from ddiffpg_tpu_torch.physics import maze  # noqa: E402
 from ddiffpg_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
-from tests.jax_caches import fresh_structure_cache  # noqa: E402,F401
+from tests.port_fixtures import (  # noqa: E402,F401
+    fresh_structure_cache, one_torch_thread)
 
 EPISODE = 8
 GOAL = (1.5, 1.5)
@@ -49,18 +50,6 @@ TINY = ["device=cpu", "num_envs=8", "eval_num_envs=4", "algo.warm_up=8",
         "algo.batch_size=64", "algo.update_times=1", "algo.memory_size=32",
         "diffusion.update_times=2", "diffusion.diffusion_iter=2",
         "intrinsic.L=2", "eval_freq=2", "ckpt_freq_mult=1", "log_freq=1"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The runs here step 8 ants and a small agent: beside the suite's
-    other workers torch's default of a thread a core oversubscribes the
-    machine, so one intra-op thread for the module, the previous count
-    restored after it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_eval_rollout_matches_jax():

@@ -34,22 +34,13 @@ from ddiffpg_tpu_torch.models import baseline_diffusion as bd  # noqa: E402
 from ddiffpg_tpu_torch.models import diffusion, mlp  # noqa: E402
 from ddiffpg_tpu_torch.utils import convert  # noqa: E402
 from ddiffpg_tpu_torch.utils.ema import ema_update  # noqa: E402
-from tests.jax_caches import fresh_structure_cache  # noqa: E402,F401
+from tests.port_fixtures import (  # noqa: E402,F401
+    fresh_structure_cache, one_torch_thread)
 
 B, D, A = 8, 29, 8
 KEY = jax.random.PRNGKey(0)
 T = lambda x: torch.tensor(np.asarray(x))  # noqa: E731
 N = lambda x: x.detach().cpu().numpy()  # noqa: E731
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Small tensors beside the suite's other workers: one intra-op
-    thread for the module, the previous count restored after it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def inputs(seed=0):

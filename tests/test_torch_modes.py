@@ -24,6 +24,8 @@ from ddiffpg_tpu_torch.modes import _native  # noqa: E402
 from ddiffpg_tpu_torch.modes import cluster, linkage  # noqa: E402
 from ddiffpg_tpu_torch.modes.q_scheduler import QScheduler  # noqa: E402
 from ddiffpg_tpu_torch.utils import convert  # noqa: E402
+from tests.port_fixtures import (  # noqa: E402,F401
+    fresh_structure_cache, one_torch_thread)
 
 
 def _dist(seed, n=40, blobs=1):

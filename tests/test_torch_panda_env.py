@@ -14,7 +14,8 @@ from ddiffpg_tpu.envs.panda import PandaTaskEnv as JaxPanda  # noqa: E402
 from ddiffpg_tpu_torch.envs import make  # noqa: E402
 from ddiffpg_tpu_torch.envs.base import EnvState  # noqa: E402
 from ddiffpg_tpu_torch.envs.panda import PandaTaskEnv  # noqa: E402
-from tests.jax_caches import fresh_structure_cache  # noqa: E402,F401
+from tests.port_fixtures import (  # noqa: E402,F401
+    fresh_structure_cache, one_torch_thread)
 
 B = 8
 

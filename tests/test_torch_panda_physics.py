@@ -28,7 +28,8 @@ from ddiffpg_tpu_torch.physics.builder import (BodySpec, GeomSpec,  # noqa: E402
 from ddiffpg_tpu_torch.physics.panda import build_panda_scene  # noqa: E402
 from ddiffpg_tpu_torch.physics.substep import (  # noqa: E402
     SubstepConstants, substep_reference)
-from tests.jax_caches import fresh_structure_cache  # noqa: E402,F401
+from tests.port_fixtures import (  # noqa: E402,F401
+    fresh_structure_cache, one_torch_thread)
 
 TASKS = ["Reach", "PegInsertion", "DrawerMulti", "Cabinet"]
 

@@ -21,7 +21,8 @@ from ddiffpg_tpu_torch.envs import make  # noqa: E402
 from ddiffpg_tpu_torch.envs.base import EnvState  # noqa: E402
 from ddiffpg_tpu_torch.models.diffusion import DiffusionPolicy  # noqa: E402
 from ddiffpg_tpu_torch.utils.convert import load_diffusion  # noqa: E402
-from tests.jax_caches import fresh_structure_cache  # noqa: E402,F401
+from tests.port_fixtures import (  # noqa: E402,F401
+    fresh_structure_cache, one_torch_thread)
 
 B, EMB, K, P = 16, 5, 5, 0.5
 STD_MIN, STD_MAX = 0.05, 0.6

@@ -16,6 +16,9 @@ import numpy as np
 import pytest
 import torch
 
+from tests.port_fixtures import (  # noqa: F401
+    fresh_structure_cache, one_torch_thread)
+
 WORLD = 2
 B = 16                  # rows of the injected batch, B // WORLD a rank
 
@@ -117,14 +120,14 @@ def _dp_run(seed):
             "masks": ts.replay.group_mask.numpy().copy()}
 
 
-def _rank(rank, out_dir, store):
+def _rank(rank, out_dir, store, threads):
     import torch.distributed as dist
 
     from ddiffpg_tpu_torch.agents import base, make_agent
     from ddiffpg_tpu_torch.envs import make
     from ddiffpg_tpu_torch.ops import running_stats as rs
 
-    torch.set_num_threads(1)
+    torch.set_num_threads(threads)
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=WORLD)
     group = dist.group.WORLD
@@ -155,21 +158,15 @@ def ranks(tmp_path_factory):
     import torch.multiprocessing as mp
 
     d = tmp_path_factory.mktemp("dp")
-    mp.spawn(_rank, args=(str(d), str(d / "store")), nprocs=WORLD,
-             join=True)
+    # each rank on this process's intra-op threads: one, under
+    # port_fixtures.one_torch_thread
+    mp.spawn(_rank, args=(str(d), str(d / "store"), torch.get_num_threads()),
+             nprocs=WORLD, join=True)
     out = []
     for r in range(WORLD):
         with open(d / f"rank{r}.pkl", "rb") as f:
             out.append(pickle.load(f))
     return out
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _local_agent():

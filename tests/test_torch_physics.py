@@ -19,7 +19,8 @@ from ddiffpg_tpu_torch.physics.ant import build_ant  # noqa: E402
 from ddiffpg_tpu_torch.physics.panda import build_panda_scene  # noqa: E402
 from ddiffpg_tpu_torch.physics.substep import (  # noqa: E402
     SubstepConstants, substep_reference)
-from tests.jax_caches import fresh_structure_cache  # noqa: E402,F401
+from tests.port_fixtures import (  # noqa: E402,F401
+    fresh_structure_cache, one_torch_thread)
 
 
 def _states(m, B, seed, wall=False):

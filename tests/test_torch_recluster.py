@@ -28,7 +28,8 @@ from ddiffpg_tpu_torch.replay import episodic as ep  # noqa: E402
 from ddiffpg_tpu_torch.utils import convert  # noqa: E402
 from tests.test_torch_update import (E, _cfg, _draws, _fill_state,  # noqa
                                      _port_agent)
-from tests.jax_caches import fresh_structure_cache  # noqa: E402,F401
+from tests.port_fixtures import (  # noqa: E402,F401
+    fresh_structure_cache, one_torch_thread)
 
 T = lambda x: torch.tensor(np.asarray(x))  # noqa: E731
 

@@ -10,6 +10,8 @@ torch = pytest.importorskip("torch")
 
 from ddiffpg_tpu.replay import episodic as jep  # noqa: E402
 from ddiffpg_tpu_torch.replay import episodic as ep  # noqa: E402
+from tests.port_fixtures import (  # noqa: E402,F401
+    fresh_structure_cache, one_torch_thread)
 
 E, S, L, D, A, G, NG = 4, 10, 6, 3, 2, 4, 2
 T = lambda x: torch.tensor(np.asarray(x))  # noqa: E731

@@ -26,7 +26,8 @@ from ddiffpg_tpu_torch.envs import make  # noqa: E402
 from ddiffpg_tpu_torch.envs.base import EnvState  # noqa: E402
 from ddiffpg_tpu_torch.models.diffusion import DiffusionPolicy  # noqa: E402
 from ddiffpg_tpu_torch.utils.convert import load_diffusion  # noqa: E402
-from tests.jax_caches import fresh_structure_cache  # noqa: E402,F401
+from tests.port_fixtures import (  # noqa: E402,F401
+    fresh_structure_cache, one_torch_thread)
 
 B, EMB, K, P = 16, 5, 5, 0.5
 STD_MIN, STD_MAX = 0.05, 0.6
@@ -117,19 +118,25 @@ def test_collect_records_and_auto_reset():
 def test_port_runs_without_jax():
     """Importing every module of the port (the entry point, the recluster
     and its native linkage, the DTW kernel's binding, the eval and the
-    logger among them) and chip_smoke, then building and stepping
-    antmaze-v1 and PandaDrawerMultiJoints-v3 on the CPU, and building the
-    DDiffPG agent there, running one small train iteration, a recluster
-    and a checkpoint's save and load, never loads jax, jaxlib, flax or the
-    JAX package (the card's machine has no JAX, and the port keeps its own
-    copies of what it needs)."""
+    logger among them), chip_smoke and the port tests' shared set-up
+    (tests/port_fixtures.py, its structure-cache reset run once), then
+    building and stepping antmaze-v1 and
+    PandaDrawerMultiJoints-v3 on the CPU, and building the DDiffPG agent
+    there, running one small train iteration, a recluster and a
+    checkpoint's save and load, never loads jax, jaxlib, flax or the JAX
+    package (the card's machine has no JAX, and the port keeps its own
+    copies of what it needs). The child runs on one intra-op thread, as
+    the port's test files do."""
     code = (
         "import importlib, pkgutil, sys, torch\n"
+        "torch.set_num_threads(1)\n"
         "import ddiffpg_tpu_torch\n"
         "for mod in pkgutil.walk_packages(ddiffpg_tpu_torch.__path__,\n"
         "                                 'ddiffpg_tpu_torch.'):\n"
         "    importlib.import_module(mod.name)\n"
         "import chip_smoke\n"
+        "import tests.port_fixtures\n"
+        "tests.port_fixtures._clear_structure_cache()\n"
         "from ddiffpg_tpu_torch.agents.ddiffpg import collect\n"
         "from ddiffpg_tpu_torch.envs import make\n"
         "from ddiffpg_tpu_torch.models.diffusion import DiffusionPolicy\n"

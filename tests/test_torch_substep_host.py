@@ -29,6 +29,8 @@ from ddiffpg_tpu_torch.physics import substep_cuda  # noqa: E402
 from ddiffpg_tpu_torch.physics.panda import Arm, build_panda_scene  # noqa: E402
 from ddiffpg_tpu_torch.physics.substep import (  # noqa: E402
     SubstepConstants, substep_reference)
+from tests.port_fixtures import (  # noqa: E402,F401
+    fresh_structure_cache, one_torch_thread)
 
 B = 8
 MODELS = ("ant", "Reach", "PegInsertion", "DrawerMulti", "Cabinet")

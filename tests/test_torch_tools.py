@@ -55,7 +55,8 @@ from ddiffpg_tpu_torch.tools import (archive_run, common, eval_ckpt,  # noqa
 from ddiffpg_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 from ddiffpg_tpu_torch.utils import convert, plotting  # noqa: E402
 from ddiffpg_tpu_torch.utils.logger import Logger  # noqa: E402
-from tests.jax_caches import fresh_structure_cache  # noqa: E402,F401
+from tests.port_fixtures import (  # noqa: E402,F401
+    fresh_structure_cache, one_torch_thread)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from tools import archive_run as jarchive  # noqa: E402
@@ -66,16 +67,6 @@ N = lambda x: x.detach().cpu().numpy()  # noqa: E731
 G = 3
 TINY = ["num_envs=4", "algo.memory_size=8", "diffusion.diffusion_iter=2",
         "algo.warm_up=100"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Small tensors beside the suite's other workers: one intra-op
-    thread for the module, the previous count restored after it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ------------------------------------------------------------------ plots
@@ -497,7 +488,7 @@ def test_trace_launch_diagnostics_match_jax_engine():
     from ddiffpg_tpu.physics import engine as jengine
     from ddiffpg_tpu_torch.envs.antmaze import AntMazeEnv
 
-    # no stale structure of a freed model of this module (jax_caches.py)
+    # no stale structure of a freed model of this module (port_fixtures.py)
     jengine._STRUCT_CACHE.clear()
     jm = JaxAntMaze("antmaze-v1").model
 

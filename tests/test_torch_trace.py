@@ -27,6 +27,8 @@ from ddiffpg_tpu_torch.envs import make  # noqa: E402
 from ddiffpg_tpu_torch.models.diffusion import DiffusionPolicy  # noqa: E402
 from ddiffpg_tpu_torch.parallel.dp import leaves  # noqa: E402
 from ddiffpg_tpu_torch.utils import trace  # noqa: E402
+from tests.port_fixtures import (  # noqa: E402,F401
+    fresh_structure_cache, one_torch_thread)
 
 DDIFFPG_PARTS = ["sample", "NovelD reward", "target actions",
                  "critic update", "action gradient", "actor loss and step",
@@ -42,14 +44,10 @@ PARTS = {"DDiffPG": DDIFFPG_PARTS,
 
 
 @pytest.fixture(autouse=True)
-def one_thread_spans_off():
-    """One intra-op thread (tiny tensors beside the suite's other
-    workers), and the spans off after each test."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
+def spans_off():
+    """The spans off after each test."""
     yield
     trace.enable(False)
-    torch.set_num_threads(n)
 
 
 def _refuse(*a, **k):

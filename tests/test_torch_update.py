@@ -24,7 +24,8 @@ from ddiffpg_tpu_torch.agents.ddiffpg import UpdateDraws  # noqa: E402
 from ddiffpg_tpu_torch.envs import make  # noqa: E402
 from ddiffpg_tpu_torch.replay import episodic as ep  # noqa: E402
 from ddiffpg_tpu_torch.utils import convert  # noqa: E402
-from tests.jax_caches import fresh_structure_cache  # noqa: E402,F401
+from tests.port_fixtures import (  # noqa: E402,F401
+    fresh_structure_cache, one_torch_thread)
 
 E, B, K, AG_STEPS, SLOTS = 4, 48, 3, 3, 12
 OVER = {"num_envs": E, "algo.batch_size": B, "algo.memory_size": SLOTS,

@@ -29,6 +29,8 @@ from ddiffpg_tpu_torch.ops import distributional, optim  # noqa: E402
 from ddiffpg_tpu_torch.ops import running_stats as rs  # noqa: E402
 from ddiffpg_tpu_torch.ops.posenc import posenc  # noqa: E402
 from ddiffpg_tpu_torch.utils import convert  # noqa: E402
+from tests.port_fixtures import (  # noqa: E402,F401
+    fresh_structure_cache, one_torch_thread)
 
 OBS, A, ATOMS = 29, 8, 51
 T = lambda x: torch.tensor(np.asarray(x))  # noqa: E731
